@@ -6,20 +6,37 @@
 Phases, one line each with its seconds; any failure raises and exits
 non-zero:
 
-1. build  — compile the CUDA kernels K1-K4 from src/repro_torch/csrc;
-2. kernels — each kernel against its plain PyTorch version at the main
-   path's shapes (paper_params_bootstrap, level 20, batch 8, plus level
-   13 with a ragged tail digit): torch.equal, then median CUDA-event
-   times of kernel and plain version, and the kernel's bound;
+1. build  — compile the CUDA kernels K1-K7 from src/repro_torch/csrc
+   (one nvcc per source, all started together);
+2. kernels — each kernel against its plain PyTorch version at its
+   path's shapes: K1-K4 as the serve path gives them
+   (paper_params_bootstrap, level 20, batch 8, plus level 13 with a
+   ragged tail digit); K5 mulacc over the T = 27 target rows, K6 bconv
+   (eager and lazy) at S = 6 -> D = 21 and S = 3 -> D = 24 with the
+   32-bit prime among the destinations, K5 and K6 also at a ragged N;
+   K7 ntt_col + ntt_row at N = 2^16, R = C = 256, at a 30-bit prime and
+   at 3221225473. torch.equal, then the device time of kernel and plain
+   version (20 back-to-back calls between CUDA events, a sleep kernel
+   holding the device while the host enqueues them), the host's time to
+   enqueue one call, the kernel's bound, and a one-call library
+   yardstick where one exists;
 3. keyswitch — the 4-launch fused keyswitch against the library
    core/ops.key_switch, relin and Galois key, bit-equal, 4 dispatches
    per apply;
-4. serve  — the port's serve_fhe main path (--backend ciphertext
+4. staged — the dispatch-per-stage keyswitch (K4-K6 + library NTTs) at
+   level 20, relin and Galois key: bit-equal to the fused and the
+   library keyswitch, 7 * 4 + 10 = 38 dispatches, K4-K6 launched;
+5. fig14  — repro_torch.benchmarks.fig14_kernels at its default sizes on
+   the card: its >= 4x dispatch assertion and oracle checks hold, and
+   K4-K7 launched;
+6. serve  — the port's serve_fhe main path (--backend ciphertext
    --use-kernels --device cuda, paper parameters from start level 20,
    8 requests over helr/lola/matvec/poly): every workload's accuracy OK
-   and every kernel launched.
+   and K1-K4 launched.
 
-Then a JSON line of per-kernel numbers, the card's name and power limit
+Launch counts are set to 0 just before each of the staged, fig14 and
+serve paths and read just after. Then a JSON line of per-kernel numbers
+(all nine kernels, launches per path), the card's name and power limit
 from nvidia-smi, and the final status line. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -47,6 +64,19 @@ LEVEL = 20          # serve_fhe's start level at paper parameters
 LOW_LEVEL = 13      # 14 limbs -> digits of 6, 6, 2: a ragged tail
 BATCH = 8           # serve_fhe --max-batch
 REPS = 20
+# SM cycles a second, for the sleep that holds the device while the host
+# enqueues timed launches (H100 SXM boost clock, 1.98 GHz)
+SLEEP_CYCLES_PER_S = 1.98e9
+RAGGED = 36         # N - 36 columns: not a multiple of any block
+Q32 = 3221225473    # paper_params_bootstrap's 32-bit special prime
+
+# kernels each driven path must launch, and the path whose count is a
+# kernel's `launches` in the JSON line
+SERVE_KERNELS = ("intt_scale", "bconv_ntt_mulacc", "moddown", "modmul")
+STAGED_KERNELS = ("modmul", "mulacc", "bconv")
+FIG14_KERNELS = ("modmul", "mulacc", "bconv", "bconv_lazy", "ntt_col",
+                 "ntt_row")
+ORDER = SERVE_KERNELS + FIG14_KERNELS[1:]
 
 
 class Phase:
@@ -64,8 +94,35 @@ class Phase:
         return False
 
 
+def device_ms(torch, fn, reps: int = REPS):
+    """Device time of one call of fn: the mean of `reps` back-to-back
+    calls between two CUDA events, with a sleep kernel holding the device
+    while the host enqueues them, so the host's time per call (Python,
+    operand checks, the launch itself) is not timed when the sleep covers
+    it. Returns (device ms, host ms to enqueue one call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.0, 2 * reps * once) * SLEEP_CYCLES_PER_S))
+    s.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = (time.perf_counter() - t0) / reps
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps, host_s * 1e3
+
+
 def cuda_ms(torch, fn, reps: int = REPS) -> float:
-    """Median device time of fn over `reps` runs (CUDA events)."""
+    """Median time of one call of fn between CUDA events recorded just
+    before and after it: device time plus any gap while the host
+    enqueues the call's launches (what a caller of one keyswitch waits)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -105,10 +162,14 @@ def main() -> int:
     from repro_torch.core import ops as hops
     from repro_torch.core.context import CkksContext
     from repro_torch.core.encryptor import CkksEncryptor
-    from repro_torch.core.params import paper_params_bootstrap
+    from repro_torch.benchmarks import fig14_kernels
+    from repro_torch.core.params import (find_2nth_root, find_ntt_primes,
+                                         paper_params_bootstrap)
+    from repro_torch.kernels import bconv as bc
     from repro_torch.kernels import build, common
     from repro_torch.kernels import keyswitch as ks
     from repro_torch.kernels import modmul as mm
+    from repro_torch.kernels import ntt as kntt
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import serve_fhe
 
@@ -156,6 +217,26 @@ def main() -> int:
                 raise AssertionError(f"{name}: kernel differs from its "
                                      f"plain version, max |err| {err}")
             return out_k, err
+
+        def measure(name, err, kern, plain, nb, nops, lib=None):
+            info = common.KERNELS[name]
+            b_ms, b_by = bound(nb, nops)
+            ms, host_ms = device_ms(torch, kern)
+            rows[name] = {
+                "name": name, "route": "cuda", "source": info.source,
+                "replaces": info.replaces, "launches": 0,
+                "max_abs_err": err, "ms": ms,
+                "plain_ms": device_ms(torch, plain)[0], "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": device_ms(torch, lib)[0] if lib else None,
+                "bytes": nb, "ops": nops, "host_ms": host_ms}
+            r = rows[name]
+            print(f"  {name:<17} {ms:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by "
+                  f"{b_by}, {nb / 1e6:.1f} MB, {nops / 1e9:.3f} Gop"
+                  + (f", library {r['library_ms']:.4f} ms" if lib
+                     else "") + f"; host {host_ms:.4f} ms a call)",
+                  flush=True)
 
         for level in (LEVEL, LOW_LEVEL):
             t = fks._tables(level)
@@ -226,22 +307,87 @@ def main() -> int:
                      ct.reshape(2 * BATCH, l, n) * pt,
                      q64[:, None])),
             ]
-            for name, err, kern, plain, nb, nops, lib in specs:
-                info = common.KERNELS[name]
-                b_ms, b_by = bound(nb, nops)
-                rows[name] = {
-                    "name": name, "route": "cuda", "source": info.source,
-                    "replaces": info.replaces, "launches": 0,
-                    "max_abs_err": err, "ms": cuda_ms(torch, kern),
-                    "plain_ms": cuda_ms(torch, plain), "bound_ms": b_ms,
-                    "bound_by": b_by,
-                    "library_ms": cuda_ms(torch, lib) if lib else None}
-                r = rows[name]
-                print(f"  {name:<17} {r['ms']:.4f} ms (plain "
-                      f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by "
-                      f"{b_by}, {nb / 1e6:.1f} MB, {nops / 1e9:.2f} Gop"
-                      + (f", library {r['library_ms']:.4f} ms" if lib
-                         else "") + ")", flush=True)
+            for spec in specs:
+                measure(*spec)
+
+        # K5-K7 at this slice's full-width shapes: the staged keyswitch's
+        # target basis at level 20 (T = 27 rows, the 32-bit prime in P)
+        print(f"level {LEVEL} target basis: K5-K7", flush=True)
+        l = LEVEL + 1
+        target = list(range(l)) + ctx.p_idx()
+        t_primes = [ctx.primes[i] for i in target]
+        t_n = len(target)
+        if Q32 not in ctx.p_primes:
+            raise AssertionError(f"{Q32} is not a special prime here")
+
+        def rand_rows(primes, cols):
+            return torch.from_numpy(np.stack([
+                rng.integers(0, p, size=cols) for p in primes])).to(dev)
+
+        q64t, q32t, qit, rmt = kops._mont_consts(tuple(t_primes), str(dev))
+        for cols in (n - RAGGED, n):
+            a5, b5, c5 = (rand_rows(t_primes, cols) for _ in range(3))
+            b5m = ma.mulmod(b5, rmt[:, None], q64t[:, None]).to(torch.int32)
+            a5s = (a5, b5m, c5, q32t, qit)
+            _, e5 = compare(f"mulacc@N={cols}",
+                            lambda: mm.mulacc_mont(*a5s),
+                            lambda: mm.mulacc_mont_plain(*a5s))
+        measure("mulacc", e5, lambda: mm.mulacc_mont(*a5s),
+                lambda: mm.mulacc_mont_plain(*a5s),
+                28 * t_n * n + 8 * t_n, t_n * n * (MONT + ADD),
+                # wraps int64 on the 32-bit limb: a time yardstick only
+                lambda: torch.remainder(a5 * b5 + c5, q64t[:, None]))
+
+        digits = params.digit_indices(LEVEL)
+        bconv_cases = ((digits[-1], n), (digits[0], n - RAGGED),
+                       (digits[0], n))
+        for dig, cols in bconv_cases:
+            other = [i for i in target if i not in dig]
+            dst = [ctx.primes[i] for i in other]
+            p64, p32, pinv, rm = kops._mont_consts(tuple(dst), str(dev))
+            w6 = ma.mulmod(ctx.bconv_tables(dig, other).w.T % p64[:, None],
+                           rm[:, None], p64[:, None]).to(
+                               torch.int32).contiguous()
+            v6 = rand_rows([ctx.primes[i] for i in dig], cols)
+            errs = {}
+            for lazy in (False, True):
+                a6 = (v6, w6, p32, pinv, lazy)
+                _, errs[lazy] = compare(
+                    f"bconv(lazy={lazy})@S={len(dig)},D={len(dst)},"
+                    f"N={cols}", lambda: bc.bconv_mont(*a6),
+                    lambda: bc.bconv_plain(*a6))
+        s6, d6 = len(dig), len(dst)
+        for lazy, name in ((False, "bconv"), (True, "bconv_lazy")):
+            a6 = (v6, w6, p32, pinv, lazy)
+            measure(name, errs[lazy], lambda: bc.bconv_mont(*a6),
+                    lambda: bc.bconv_plain(*a6),
+                    8 * (s6 + d6) * n + 4 * d6 * s6 + 8 * d6,
+                    s6 * d6 * n * (MONT + ADD))
+
+        log_r = ctx.log_n // 2
+        r7, c7 = 1 << log_r, n >> log_r
+        for q7 in (Q32, find_ntt_primes(30, ctx.log_n, 1)[0].value):
+            kern7 = kops.NttKernel(q7, find_2nth_root(q7, 2 * n), ctx.log_n,
+                                   log_r)
+            kt = kern7.tables(dev)
+            a7 = torch.from_numpy(rng.integers(0, q7, size=n)).to(dev)
+            y7, e7c = compare(f"ntt_col@q={q7}",
+                              lambda: kntt.ntt_col(a7, kt, 128),
+                              lambda: kntt.ntt_col_plain(a7, kt))
+            _, e7r = compare(f"ntt_row@q={q7}",
+                             lambda: kntt.ntt_row(y7, kt, 8),
+                             lambda: kntt.ntt_row_plain(y7, kt))
+        measure("ntt_col", e7c, lambda: kntt.ntt_col(a7, kt, 128),
+                lambda: kntt.ntt_col_plain(a7, kt),
+                8 * n + 4 * n + 4 * r7 + 8, c7 * ntt_ops(r7))
+        measure("ntt_row", e7r, lambda: kntt.ntt_row(y7, kt, 8),
+                lambda: kntt.ntt_row_plain(y7, kt),
+                4 * n + 4 * n + 4 * c7 + 8 * n + 8,
+                n * MONT + r7 * ntt_ops(c7))
+        print(f"K5 (T={t_n}), K6 (S=6->D=21, S=3->D=24, eager and lazy) "
+              f"and K7 (N={n}, R=C={r7}) torch.equal to their plain "
+              f"versions, ragged N={n - RAGGED} and q={Q32} included",
+              flush=True)
 
     with Phase("keyswitch"):
         level = LEVEL
@@ -266,8 +412,66 @@ def main() -> int:
             print(f"  {key_id}: bit-equal to the library route for all "
                   f"{BATCH} rows, 4 dispatches; fused {ms_f:.3f} ms, "
                   f"library {ms_l:.3f} ms", flush=True)
-        del ctx, enc, sk, rk, gk, fks, d2, e0, e1, r0, r1
+
+    paths = {}
+    with Phase("staged"):
+        row1 = d2[:1]
+        n_dig = len(params.digit_indices(level))
+        want = 7 * n_dig + 10
+        common.reset_launches()
+        for key_id, key in (("relin", rk), (("gk", elt), gk)):
+            common.reset_dispatch_count()
+            s0, s1 = ks.keyswitch_staged(ctx, row1[0], level, key)
+            got = common.dispatch_count()
+            if got != want:
+                raise AssertionError(f"staged keyswitch took {got} "
+                                     f"dispatches, expected {want}")
+            e0, e1 = fks.apply(row1, level, fks.ksk_mont(key_id, level,
+                                                         key.data))
+            r0, r1 = hops.key_switch(ctx, row1, level, key)
+            for name, (x0, x1) in (("fused", (e0, e1)),
+                                   ("library", (r0, r1))):
+                if not (torch.equal(s0, x0[0]) and torch.equal(s1, x1[0])):
+                    raise AssertionError(f"staged keyswitch ({key_id}) "
+                                         f"differs from the {name} route")
+        paths["staged"] = launched = {
+            k: v.launches for k, v in common.KERNELS.items()}
+        expect = {"modmul": 2 * (n_dig + 2), "mulacc": 2 * 2 * n_dig,
+                  "bconv": 2 * (n_dig + 2)}
+        got = {k: launched[k] for k in STAGED_KERNELS}
+        if got != expect:
+            raise AssertionError(f"staged launches {got}, expected "
+                                 f"{expect}")
+        km = fks.ksk_mont("relin", level, rk.data)
+        ms_s = cuda_ms(torch, lambda: ks.keyswitch_staged(
+            ctx, row1[0], level, rk), 5)
+        ms_f = cuda_ms(torch, lambda: fks.apply(row1, level, km), 5)
+        ms_l = cuda_ms(torch, lambda: hops.key_switch(ctx, row1, level,
+                                                      rk), 5)
+        print(f"  staged keyswitch, level {level}, one row: bit-equal to "
+              f"the fused and library routes (relin and Galois keys), "
+              f"{want} dispatches against 4 fused; staged {ms_s:.3f} ms, "
+              f"fused {ms_f:.3f} ms, library {ms_l:.3f} ms; launches per "
+              f"keyswitch K4 {n_dig + 2}, K5 {2 * n_dig}, K6 {n_dig + 2}",
+              flush=True)
+        del ctx, enc, sk, rk, gk, fks, d2, row1, e0, e1, r0, r1, s0, s1
         torch.cuda.empty_cache()
+
+    with Phase("fig14"):
+        common.reset_launches()
+        records = fig14_kernels.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        paths["fig14"] = launched = {
+            k: v.launches for k, v in common.KERNELS.items()}
+        missing = [k for k in FIG14_KERNELS if launched[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the fig14 "
+                                 f"path: {missing}")
+        red = next(r for r in records
+                   if r["name"] == "fig14_keyswitch_dispatch_reduction")
+        print(f"fig14: {len(records)} rows on the card, dispatch "
+              f"reduction {red['reduction']:.2f}x (asserted >= 4x), "
+              f"launches {launched}", flush=True)
 
     with Phase("serve"):
         args = serve_fhe.parse_args([
@@ -280,7 +484,8 @@ def main() -> int:
         common.reset_launches()
         res = serve_fhe.serve(args)
         torch.cuda.synchronize()
-        launches = {k: v.launches for k, v in common.KERNELS.items()}
+        paths["serve"] = launches = {
+            k: v.launches for k, v in common.KERNELS.items()}
         peak = torch.cuda.max_memory_allocated()
         m = res.executor.metrics
         served = sorted(m.decrypt_error)
@@ -288,9 +493,9 @@ def main() -> int:
                 serve_fhe.WORKLOADS):
             raise AssertionError(f"serve accuracy {res.accuracy_ok}, "
                                  f"workloads served {served}")
-        missing = [k for k, c in launches.items() if c == 0]
+        missing = [k for k in SERVE_KERNELS if launches[k] == 0]
         if missing:
-            raise AssertionError(f"kernels never launched on the main "
+            raise AssertionError(f"kernels never launched on the serve "
                                  f"path: {missing}")
         stage_s = sum(m.occupancy.busy_s)     # serve batches' stages
         service_s = m.batch_service.mean * m.batch_service.count
@@ -316,11 +521,16 @@ def main() -> int:
               f"peak device memory {peak / 2 ** 30:.2f} GiB, "
               f"launches {launches}", flush=True)
 
-    for name, c in launches.items():
-        rows[name]["launches"] = c
-    print(json.dumps({"kernels": [rows[k] for k in
-                                  ("intt_scale", "bconv_ntt_mulacc",
-                                   "moddown", "modmul")]}))
+    if set(ORDER) != set(common.KERNELS) or set(ORDER) != set(rows):
+        raise AssertionError(f"kernel rows {sorted(rows)} against "
+                             f"registered {sorted(common.KERNELS)}")
+    for name in ORDER:
+        path = "serve" if name in SERVE_KERNELS else "fig14"
+        rows[name]["path"] = path
+        rows[name]["launches"] = paths[path][name]
+        rows[name]["launches_by_path"] = {p: c[name] for p, c in
+                                          paths.items()}
+    print(json.dumps({"kernels": [rows[k] for k in ORDER]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -15,6 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core.modarith import MASK32, mul_wide
 from repro_torch.core.modarith import addmod as addmod32  # noqa: F401
 from repro_torch.core.modarith import submod as submod32  # noqa: F401
 
@@ -100,19 +101,6 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
 # ---------------------------------------------------------------------------
 # plain Montgomery arithmetic (int64 tensors, no intermediate > 2^63)
 # ---------------------------------------------------------------------------
-
-MASK32 = 0xFFFFFFFF
-
-
-def mul_wide(a, b):
-    """(hi, lo) 32-bit words of a*b for 0 <= a, b < 2^32, on int64
-    without overflow: b is split in 16-bit halves, every partial product
-    stays below 2^48."""
-    x = a * (b & 0xFFFF)
-    y = a * (b >> 16)                     # a*b = x + y * 2^16
-    lo_sum = (x & MASK32) + ((y & 0xFFFF) << 16)
-    return (x >> 32) + (y >> 16) + (lo_sum >> 32), lo_sum & MASK32
-
 
 def mont_mul32(a, b, q, qinv_neg):
     """a*b*2^-32 mod q for a, b < q < 2^32 odd; qinv_neg = -q^{-1} mod

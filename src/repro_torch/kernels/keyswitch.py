@@ -18,6 +18,10 @@ it as FOUR launches, whatever the digit count, limb count or batch:
   C2 K3 ``moddown``           grid (chunks, l, 2B): BConv P->Q, forward
      NTT, subtraction from the Q limbs, times P^{-1}
 
+``keyswitch_staged`` runs the same keyswitch as one dispatch per stage
+(7·digits + 10), through K4-K6 and the library NTTs: the baseline the
+fused pipeline is measured against (benchmarks/fig14_kernels.py).
+
 The digit-limb "copy" of the reference ModUp needs no special case: for a
 target limb inside the source digit every cross term of the BConv sum
 vanishes and the diagonal term reproduces the limb, so the uniform path
@@ -38,6 +42,7 @@ import torch
 
 from repro_torch.core import modarith as ma
 from repro_torch.kernels import build
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.common import (addmod32, as_i32, check, mont_mul32,
                                         qinv_neg32, record_dispatch,
                                         register_kernel, submod32,
@@ -394,3 +399,59 @@ class FusedKeySwitch:
         out = u32(moddown(g, vp, t.wpq_m, t.rp_m, t.t_q32, t.t_qi32,
                           t.pinv_m))
         return out[:b], out[b:]
+
+
+# ---------------------------------------------------------------------------
+# staged baseline: the same pipeline as one dispatch per stage
+# ---------------------------------------------------------------------------
+
+def keyswitch_staged(ctx, d2: torch.Tensor, level: int,
+                     ksk) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch-per-stage keyswitch of one row d2 (level+1, N) int64,
+    NTT domain, through K4 (qhat^{-1} scale), K6 (BConv) and K5 (evk
+    multiply-accumulate) plus the library NTTs; bit-identical to
+    core/ops.key_switch. Records 7 dispatches per digit (iNTT, modmul,
+    BConv, NTT, interleave, 2 x mulacc) plus 10 for ModDown."""
+    idx_q = ctx.q_idx(level)
+    idx_p = ctx.p_idx()
+    target = idx_q + idx_p
+    t_primes = [ctx.primes[i] for i in target]
+    n = ctx.n
+    acc0 = torch.zeros((len(target), n), dtype=torch.int64,
+                       device=d2.device)
+    acc1 = torch.zeros_like(acc0)
+    ksk_sel = ksk.data[:, :, ctx.index(target)]
+    pos = {g: i for i, g in enumerate(target)}
+    for d, dig in enumerate(ctx.params.digit_indices(level)):
+        other = [i for i in target if i not in dig]
+        tabs = ctx.bconv_tables(dig, other)
+        d2_dig = d2[ctx.index(dig)]
+        record_dispatch()                                   # iNTT
+        dig_c = ctx.intt(d2_dig, dig)
+        v = kops.modmul(dig_c, tabs.qhat_inv[:, None].expand_as(dig_c),
+                        [ctx.primes[i] for i in dig])
+        conv = kops.bconv(v, tabs.w, [ctx.primes[i] for i in other])
+        record_dispatch()                                   # NTT
+        conv_ntt = ctx.ntt(conv, other)
+        record_dispatch()                                   # interleave
+        raised = torch.zeros_like(acc0)
+        raised[ctx.index([pos[g] for g in dig])] = d2_dig
+        raised[ctx.index([pos[g] for g in other])] = conv_ntt
+        acc0 = kops.mulacc(raised, ksk_sel[d, 0], acc0, t_primes)
+        acc1 = kops.mulacc(raised, ksk_sel[d, 1], acc1, t_primes)
+    nq = len(idx_q)
+    q = ctx.q_all[:nq][:, None]
+    tabs = ctx.bconv_tables(idx_p, idx_q)
+    outs = []
+    for acc in (acc0, acc1):
+        record_dispatch()                                   # iNTT (P)
+        p_c = ctx.intt(acc[nq:], idx_p)
+        v = kops.modmul(p_c, tabs.qhat_inv[:, None].expand_as(p_c),
+                        [ctx.primes[i] for i in idx_p])
+        conv = kops.bconv(v, tabs.w, [ctx.primes[i] for i in idx_q])
+        record_dispatch()                                   # NTT
+        conv_ntt = ctx.ntt(conv, idx_q)
+        record_dispatch()                                   # sub + P^{-1}
+        diff = ma.submod(acc[:nq], conv_ntt, q)
+        outs.append(ma.mulmod(diff, ctx.p_inv_mod_q[:nq][:, None], q))
+    return outs[0], outs[1]

@@ -9,7 +9,10 @@ the card with
 
 Covers every chunking of the NTT kernels (N = 2^10: one chunk in shared
 memory; 2^15: two; 2^16: four), a 32-bit special prime, ragged tail
-digits, a ragged K4 row length, and one launch count per wrapper call.
+digits, a ragged K4 row length, and one launch count per wrapper call;
+K5 (mulacc), K6 (bconv, eager and lazy) and K7 (ntt_col + ntt_row) at
+ragged N, at the 32-bit prime 3221225473, with K7's block-divisibility
+error, and the staged keyswitch against the library route.
 Imports nothing of JAX, so it runs where only torch is installed.
 """
 import numpy as np
@@ -17,14 +20,22 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import modarith as ma  # noqa: E402
 from repro_torch.core import ops as hops  # noqa: E402
 from repro_torch.core.context import CkksContext  # noqa: E402
 from repro_torch.core.encryptor import CkksEncryptor  # noqa: E402
 from repro_torch.core.params import CkksParams  # noqa: E402
+from repro_torch.core.params import find_2nth_root  # noqa: E402
+from repro_torch.core.params import find_ntt_primes  # noqa: E402
+from repro_torch.kernels import bconv as bc  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels import keyswitch as ks  # noqa: E402
 from repro_torch.kernels import modmul as mm  # noqa: E402
+from repro_torch.kernels import ntt as kntt  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+
+Q32 = 3221225473            # the 32-bit special prime of paper parameters
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +109,88 @@ def test_modmul_ragged_and_counted(cuda):
            % q.cpu().numpy().astype(object)).reshape(12, n)
     np.testing.assert_array_equal(out.cpu().numpy(), ref.astype(np.int64))
     assert common.KERNELS["modmul"] is mm.MODMUL
+
+
+def _rows(primes, n, rng, device, reps=1):
+    return torch.from_numpy(np.stack([rng.integers(0, p, n)
+                                      for p in primes * reps])).to(device)
+
+
+@pytest.mark.parametrize("n", [65536, 1000])
+def test_mulacc_equal_plain_and_oracle(cuda, n):
+    primes = [2013265921, Q32, 132120577]
+    rng = np.random.default_rng(n)
+    a, c = (_rows(primes, n, rng, cuda, 2) for _ in range(2))
+    b = _rows(primes, n, rng, cuda)
+    q64, q32, qi, rm = kops._mont_consts(tuple(primes), str(cuda))
+    b_mont = ma.mulmod(b, rm[:, None], q64[:, None]).to(torch.int32)
+    before = mm.MULACC.launches
+    out = mm.mulacc_mont(a, b_mont, c, q32, qi)
+    assert mm.MULACC.launches == before + 1
+    assert torch.equal(out, mm.mulacc_mont_plain(a, b_mont, c, q32, qi))
+    want = kref.fused_mulacc_ref(a, b.repeat(2, 1), c, q64.repeat(2))
+    assert torch.equal(out, want)
+    assert torch.equal(kops.mulacc(a, b, c, primes), want)
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize("n", [65536, 777])
+def test_bconv_equal_plain_and_oracle(cuda, lazy, n):
+    """Sources above the destinations (as in ModDown) and the 32-bit
+    prime among the destinations (as in the staged ModUp)."""
+    src = [Q32, 4293918721, 2013265921, 2113929217, 2130706433, 2146959361]
+    dst = [m.value for m in find_ntt_primes(30, 10, 20)] + [Q32]
+    rng = np.random.default_rng(n + lazy)
+    v = _rows(src, n, rng, cuda)
+    w = torch.from_numpy(np.stack([rng.integers(0, 1 << 32, len(dst))
+                                   for _ in src])).to(cuda)
+    p64, p32, pinv, rm = kops._mont_consts(tuple(dst), str(cuda))
+    w_mont = ma.mulmod(w.T % p64[:, None], rm[:, None],
+                       p64[:, None]).to(torch.int32).contiguous()
+    counter = bc.BCONV_LAZY if lazy else bc.BCONV
+    before = counter.launches
+    out = bc.bconv_mont(v, w_mont, p32, pinv, lazy=lazy)
+    assert counter.launches == before + 1
+    assert torch.equal(out, bc.bconv_plain(v, w_mont, p32, pinv, lazy))
+    want = kref.bconv_ref(v, w % p64, p64)
+    assert torch.equal(out, want)
+    assert torch.equal(kops.bconv(v, w, dst, lazy=not lazy), want)
+
+
+@pytest.mark.parametrize("q,log_n,log_r", [
+    (None, 16, 8), (Q32, 16, 8), (None, 12, 6), (Q32, 10, 3)])
+def test_ntt_four_step_equal_plain_and_oracle(cuda, q, log_n, log_r):
+    q = q or find_ntt_primes(30, log_n, 1)[0].value
+    kern = kops.NttKernel(q, find_2nth_root(q, 2 << log_n), log_n, log_r)
+    kt = kern.tables(cuda)
+    a = torch.from_numpy(np.random.default_rng(log_n).integers(
+        0, q, 1 << log_n)).to(cuda)
+    before = (kntt.NTT_COL.launches, kntt.NTT_ROW.launches)
+    y = kntt.ntt_col(a, kt, 128)
+    assert torch.equal(y, kntt.ntt_col_plain(a, kt))
+    out = kntt.ntt_row(y, kt, 8)
+    assert torch.equal(out, kntt.ntt_row_plain(y, kt))
+    assert (kntt.NTT_COL.launches, kntt.NTT_ROW.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(out, kref.four_step_ntt_ref(a, kern.tabs))
+    for blocks in ({"block_c": 16, "block_r": 1}, {}):
+        assert torch.equal(kern(a, **blocks), out)
+    with pytest.raises(ValueError, match="must divide"):
+        kern(a, block_c=3)
+
+
+def test_staged_keyswitch_equal_library(cuda):
+    ctx, rk = _stack(10, cuda)
+    level = 5
+    d2 = _d2(ctx, 1, level, seed=1)[0]
+    before = {k: common.KERNELS[k].launches
+              for k in ("modmul", "mulacc", "bconv")}
+    common.reset_dispatch_count()
+    s0, s1 = ks.keyswitch_staged(ctx, d2, level, rk)
+    digits = len(ctx.params.digit_indices(level))
+    assert common.dispatch_count() == 7 * digits + 10
+    r0, r1 = hops.key_switch(ctx, d2, level, rk)
+    assert torch.equal(s0, r0) and torch.equal(s1, r1)
+    grew = {k: common.KERNELS[k].launches - v for k, v in before.items()}
+    assert grew == {"modmul": digits + 2, "mulacc": 2 * digits,
+                    "bconv": digits + 2}

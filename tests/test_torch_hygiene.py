@@ -17,9 +17,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.params import test_params as t_test_params  # noqa: E402
+from repro_torch.kernels import bconv as bc  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import keyswitch as ks  # noqa: E402
 from repro_torch.kernels import modmul as mm  # noqa: E402
+from repro_torch.kernels import ntt as kntt  # noqa: E402
+from repro_torch.kernels.ref import FourStepTables  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "src", "repro_torch")
@@ -50,6 +53,9 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch, repro_torch.launch.serve_fhe\n"
             "import repro_torch.runtime.ciphertext_backend\n"
             "import repro_torch.kernels.keyswitch, repro_torch.kernels.ops\n"
+            "import repro_torch.kernels.bconv, repro_torch.kernels.ntt\n"
+            "import repro_torch.kernels.ref\n"
+            "import repro_torch.benchmarks.fig14_kernels\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -77,6 +83,7 @@ def test_chip_smoke_imports_only_port_torch_numpy_stdlib():
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
     """With no CUDA device, the defaults raise instead of running on the
     CPU; an explicit CPU request runs."""
+    from repro_torch.benchmarks import fig14_kernels
     from repro_torch.compiler.engine import CkksEngine
     from repro_torch.core.context import CkksContext
     from repro_torch.launch import serve_fhe
@@ -91,6 +98,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     for argv in (["--smoke"], ["--smoke", "--backend", "ciphertext"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_fhe.main(argv)
+    for argv in (["--smoke"], ["--smoke", "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fig14_kernels.main(argv)
     assert CkksContext(params, device="cpu").device.type == "cpu"
     assert CiphertextBackend(params, device="cpu").use_kernels is False
 
@@ -98,9 +108,10 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 def _kernel_calls(device, n=64):
     """Every kernel wrapper, called with well-formed operands on
     `device` (small shapes: l=3 Q limbs, 2 special, 2 digits of 2)."""
-    def z(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device=device)
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=device)
     b, l, n_p, t_n = 2, 3, 2, 5
+    kt = kntt.FourStepKernelTables(FourStepTables(257, 3, 4, 2), device)
     return {
         "intt_scale": lambda: ks.intt_scale(z(b, l, n), 0, l, z(l, n),
                                             z(l), z(l), z(l)),
@@ -111,13 +122,23 @@ def _kernel_calls(device, n=64):
                                       z(n_p, l), z(t_n, n), z(t_n), z(t_n),
                                       z(l)),
         "modmul": lambda: mm.modmul_mont(
-            torch.zeros((2 * l, n), dtype=torch.int64, device=device),
-            z(l, n), z(l), z(l)),
+            z(2 * l, n, dtype=torch.int64), z(l, n), z(l), z(l)),
+        "mulacc": lambda: mm.mulacc_mont(
+            z(2 * l, n, dtype=torch.int64), z(l, n),
+            z(2 * l, n, dtype=torch.int64), z(l), z(l)),
+        "bconv": lambda: bc.bconv_mont(z(l, n, dtype=torch.int64),
+                                       z(t_n, l), z(t_n), z(t_n)),
+        "bconv_lazy": lambda: bc.bconv_mont(z(l, n, dtype=torch.int64),
+                                            z(t_n, l), z(t_n), z(t_n),
+                                            lazy=True),
+        "ntt_col": lambda: kntt.ntt_col(z(16, dtype=torch.int64), kt, 2),
+        "ntt_row": lambda: kntt.ntt_row(z(4, 4), kt, 2),
     }
 
 
 @pytest.mark.parametrize("name", ["intt_scale", "bconv_ntt_mulacc",
-                                  "moddown", "modmul"])
+                                  "moddown", "modmul", "mulacc", "bconv",
+                                  "bconv_lazy", "ntt_col", "ntt_row"])
 def test_wrapper_refuses_device_without_route(name):
     """A device that is neither the CPU (plain version) nor CUDA (the
     kernel) is refused before any library is loaded or launch made."""
