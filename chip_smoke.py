@@ -19,10 +19,12 @@ non-zero:
    version (20 back-to-back calls between CUDA events, a sleep kernel
    holding the device while the host enqueues them), the host's time to
    enqueue one call, the kernel's bound, and a one-call library
-   yardstick where one exists;
+   yardstick where one exists; for K2 and K3 (cluster kernels) also
+   the launch's grid, cluster size, threads, shared memory,
+   cudaOccupancyMaxActiveClusters, registers and local memory;
 3. keyswitch — the 4-launch fused keyswitch against the library
    core/ops.key_switch, relin and Galois key, bit-equal, 4 dispatches
-   per apply;
+   per apply, and its time per call at B = 8;
 4. staged — the dispatch-per-stage keyswitch (K4-K6 + library NTTs) at
    level 20, relin and Galois key: bit-equal to the fused and the
    library keyswitch, 7 * 4 + 10 = 38 dispatches, K4-K6 launched;
@@ -188,6 +190,7 @@ def main() -> int:
 
     params = paper_params_bootstrap()
     rows = {}
+    launch = {}         # K2, K3: launch shape and occupancy at level 20
 
     with Phase("kernels"):
         ctx = CkksContext(params, dev)
@@ -230,6 +233,8 @@ def main() -> int:
                 "bound_by": b_by,
                 "library_ms": device_ms(torch, lib)[0] if lib else None,
                 "bytes": nb, "ops": nops, "host_ms": host_ms}
+            if name in launch:
+                rows[name]["launch"] = launch[name]
             r = rows[name]
             print(f"  {name:<17} {ms:.4f} ms (plain "
                   f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by "
@@ -261,6 +266,24 @@ def main() -> int:
             _, e3 = compare(f"moddown@{level}",
                             lambda: ks.moddown(*a3),
                             lambda: ks.moddown_plain(*a3))
+            for name, dims in (("bconv_ntt_mulacc", (BATCH, l, t_n, d_n,
+                                                     t.alpha)),
+                               ("moddown", (2 * BATCH, l, t_n, n_p))):
+                info = ks.launch_info(name, n, *dims)
+                if level == LEVEL:
+                    launch[name] = info
+                blocks = info["grid_x"] * info["grid_y"] * info["grid_z"]
+                waves = blocks / (info["cluster"]
+                                  * info["max_active_clusters"])
+                print(f"  {name}@{level} launch: grid ({info['grid_x']}, "
+                      f"{info['grid_y']}, {info['grid_z']}) in clusters of "
+                      f"{info['cluster']}, {info['threads']} threads, "
+                      f"{info['smem_bytes']} B dynamic shared memory, "
+                      f"cudaOccupancyMaxActiveClusters "
+                      f"{info['max_active_clusters']} ({waves:.2f} waves), "
+                      f"{info['registers']} registers, "
+                      f"{info['local_bytes']} B local memory a thread",
+                      flush=True)
             # K4 as _pmul_kernel drives it: (B, 2, l) rows, one plaintext
             ct = torch.stack([rand_d2(level), rand_d2(level)], 1)
             a = ct.reshape(2 * BATCH * l, n)
@@ -407,10 +430,14 @@ def main() -> int:
                 raise AssertionError(f"fused keyswitch ({key_id}) differs "
                                      f"from core/ops.key_switch")
             ms_f = cuda_ms(torch, lambda: fks.apply(d2, level, km), 5)
+            dev_f, host_f = device_ms(torch, lambda: fks.apply(d2, level,
+                                                               km))
             ms_l = cuda_ms(torch, lambda: hops.key_switch(ctx, d2, level,
                                                           key), 5)
             print(f"  {key_id}: bit-equal to the library route for all "
-                  f"{BATCH} rows, 4 dispatches; fused {ms_f:.3f} ms, "
+                  f"{BATCH} rows, 4 dispatches; fused {ms_f:.3f} ms a call "
+                  f"at B = {BATCH} ({dev_f:.3f} ms device time over "
+                  f"{REPS} calls, host {host_f:.3f} ms to enqueue one), "
                   f"library {ms_l:.3f} ms", flush=True)
 
     paths = {}

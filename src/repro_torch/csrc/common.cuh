@@ -11,8 +11,10 @@
 // formed in 64 bits.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <utility>
 
 namespace rt {
 
@@ -63,60 +65,217 @@ inline int block_threads(int chunk) {
   return half < 32 ? 32 : (half > kMaxThreads ? kMaxThreads : half);
 }
 
-// Forward Harvey CT NTT (core/ntt.py::ntt_forward, natural in ->
-// bit-reversed out, Montgomery twiddles rp in the same layout), computing
-// only chunk c (positions [c*C, (c+1)*C), C = n/NCH) of the output into
-// shared `buf`. src(p) yields input element p. The first log2(NCH)
-// stages mix the NCH positions i + s*C; each thread runs them in
-// registers for its i, keeping the value that lands in chunk c. The
-// remaining stages stay inside the chunk and run in shared memory.
-// Ends with __syncthreads().
-template <int NCH, class Src>
-__device__ __forceinline__ void ntt_fwd_chunk(uint32_t* buf, Src src,
-                                              const uint32_t* rp,
-                                              uint32_t q, uint32_t qi,
-                                              int n, int c) {
-  const int C = n / NCH;
-  for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    uint32_t y[NCH];
+// ---------------------------------------------------------------------------
+// forward NTT of one row in a thread-block cluster (K2, K3)
+// ---------------------------------------------------------------------------
+// Forward Harvey CT NTT (core/ntt.py::ntt_forward: natural in, bit-reversed
+// out, Montgomery twiddles rp in the same layout) of a row of n = NCH * C,
+// C = 2^LOGC, run by the NCH blocks of one cluster: block c owns positions
+// [c*C, (c+1)*C) and its C / 16 threads hold kVals = 16 values each.
+//  1. The block forms its chunk of the input once (the caller's BConv sum,
+//     `conv`), four runs of 4 words a thread, into its padded buffer.
+//  2. Cluster barrier. Every thread reads, for each of its 16 positions i,
+//     the NCH values i + s*C from the peers' buffers (distributed shared
+//     memory) and runs the log2(NCH) cross-chunk stages in registers,
+//     keeping the half that lands in its own chunk.
+//  3. Cluster barrier: no block writes its buffer while a peer still reads
+//     it, and no block reads a peer after it, so any block may exit later.
+//  4. The LOGC in-chunk stages as radix passes in registers: radix-16
+//     passes from the top (the first right after the gather), the last
+//     pass of the remaining 1-4 stages, one block barrier between two
+//     passes (3 at C = 16384). Each thread reads and writes the same
+//     positions within a pass, so no barrier is needed inside one.
+//  5. The last pass leaves each thread 16 / 2^kLast sets of 2^kLast
+//     contiguous outputs, handed in registers to the caller's epilogue
+//     `epi`, which finds them at Sched::last_pos.
+// kernels/keyswitch.py::ntt_fwd_sched models this schedule on the CPU with
+// the same index formulas. Every sum is formed in 64 bits (q < 2^32); no
+// butterfly is lazy.
+
+constexpr int kVals = 16;
+
+// Padded shared-memory word of chunk position p: 4 pad words after every
+// 64 keep every access pattern below free of bank conflicts.
+__device__ __forceinline__ int phys(int p) { return p + ((p >> 6) << 2); }
+
+template <int NCH, int LOGC>
+struct Sched {
+  static_assert(LOGC >= 5, "a chunk holds at least 32 words");
+  static constexpr int C = 1 << LOGC;
+  static constexpr int kThreads = C / kVals;
+  static constexpr int kLast = (LOGC - 1) % 4 + 1;  // radix log, last pass
+  static constexpr int kSmem = C + ((C >> 6) << 2);  // padded buffer words
+  // value j of thread tid in the BConv phase: runs of 4 words
+  __device__ static int run_pos(int tid, int j) {
+    return ((tid + kThreads * (j >> 2)) << 2) + (j & 3);
+  }
+  // a radix-16 pass above the last one, from local stage st: one set of
+  // 16 values at the stride of the pass's last stage
+  __device__ static int mid_blk(int tid, int st) {
+    return tid >> (LOGC - st - 4);
+  }
+  __device__ static int mid_pos(int tid, int st, int j) {
+    return (mid_blk(tid, st) << (LOGC - st)) +
+           (tid & ((1 << (LOGC - st - 4)) - 1)) + (j << (LOGC - st - 4));
+  }
+  // the last pass: sets of 2^kLast contiguous values
+  __device__ static int last_blk(int tid, int j) {
+    return tid + kThreads * (j >> kLast);
+  }
+  __device__ static int last_pos(int tid, int j) {
+    return (last_blk(tid, j) << kLast) + (j & ((1 << kLast) - 1));
+  }
+};
+
+// V contiguous words (V = 2 or 4, 8- or 16-byte aligned) to and from
+// registers
+template <int V>
+__device__ __forceinline__ void ldv(const uint32_t* p, uint32_t* v) {
+  if constexpr (V == 4) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void stv(uint32_t* p, const uint32_t* v) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<uint2*>(p) = make_uint2(v[0], v[1]);
+  }
+}
+
+// Butterfly stage S of a radix-2^LR set of values in registers, the set
+// starting at local stage st: set blk of chunk c takes twiddle
+// rp[(NCH << (st+S)) + (c << (st+S)) + (blk << S) + h] for subgroup h.
+// Stages are template arguments so that every loop bound is a constant
+// and the values stay in registers (a loop bound that depends on an
+// outer loop's counter leaves the array indexed at run time, in local
+// memory).
+template <int NCH, int LR, int S>
+__device__ __forceinline__ void radix_stage(uint32_t* y, const uint32_t* rp,
+                                            int st, int blk, int c,
+                                            uint32_t q, uint32_t qi) {
+  constexpr int half = (1 << LR) >> (S + 1);
+  const uint32_t* tw = rp + (NCH << (st + S)) + (c << (st + S)) +
+                       (blk << S);
 #pragma unroll
-    for (int s = 0; s < NCH; ++s) y[s] = src(i + s * C);
+  for (int h = 0; h < (1 << S); ++h) {
+    const uint32_t w = __ldg(tw + h);
 #pragma unroll
-    for (int m = 1; m < NCH; m <<= 1) {
-      const int tt = NCH / (2 * m);
+    for (int k = 0; k < half; ++k) {
+      uint32_t& u = y[2 * half * h + k];
+      uint32_t& v = y[2 * half * h + k + half];
+      const uint32_t t = mont_mul(v, w, q, qi);
+      v = sub_mod(u, t, q);
+      u = add_mod(u, t, q);
+    }
+  }
+}
+
+template <int NCH, int LR, int... S>
+__device__ __forceinline__ void radix_stages(uint32_t* y, const uint32_t* rp,
+                                             int st, int blk, int c,
+                                             uint32_t q, uint32_t qi,
+                                             std::integer_sequence<int, S...>) {
+  (radix_stage<NCH, LR, S>(y, rp, st, blk, c, q, qi), ...);
+}
+
+// All LR stages of one set.
+template <int NCH, int LR>
+__device__ __forceinline__ void radix_set(uint32_t* y, const uint32_t* rp,
+                                          int st, int blk, int c,
+                                          uint32_t q, uint32_t qi) {
+  radix_stages<NCH, LR>(y, rp, st, blk, c, q, qi,
+                        std::make_integer_sequence<int, LR>{});
+}
+
+// conv(p, o): o[0..3] = input at chunk positions p..p+3 (p % 4 == 0).
+// epi(y): y[j] is output position Sched::last_pos(threadIdx.x, j).
+// buf: Sched::kSmem words of shared memory.
+template <int NCH, int LOGC, class Conv, class Epi>
+__device__ __forceinline__ void ntt_fwd_cluster(uint32_t* buf, Conv conv,
+                                                Epi epi, const uint32_t* rp,
+                                                uint32_t q, uint32_t qi,
+                                                int c) {
+  using S = Sched<NCH, LOGC>;
+  const int tid = threadIdx.x;
+  uint32_t y[kVals];
 #pragma unroll
-      for (int g = 0; g < m; ++g) {
-        const uint32_t w = rp[m + g];
+  for (int r = 0; r < kVals / 4; ++r) {
+    const int p = S::run_pos(tid, 4 * r);
+    uint32_t o[4];
+    conv(p, o);
+    stv<4>(buf + phys(p), o);
+  }
+  if constexpr (NCH > 1) {
+    cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+    cl.sync();
+    // The cross-chunk stages in registers, each keeping only the half
+    // that holds chunk c (NCH - 1 products a position). Stage m (= 1, 2)
+    // pairs s with s + NCH/(2m) under twiddle rp[m + c / (NCH/m)].
+    static_assert(NCH == 2 || NCH == 4, "clusters of 2 or 4 chunks");
+    const uint32_t* z0 = cl.map_shared_rank(buf, 0);
+    const uint32_t* z1 = cl.map_shared_rank(buf, 1);
+    const uint32_t w1 = __ldg(rp + 1);
+    if constexpr (NCH == 2) {
+      const bool up = c & 1;
 #pragma unroll
-        for (int k = 0; k < tt; ++k) {
-          const int s0 = g * 2 * tt + k;
-          const uint32_t u = y[s0];
-          const uint32_t v = mont_mul(y[s0 + tt], w, q, qi);
-          y[s0] = add_mod(u, v, q);
-          y[s0 + tt] = sub_mod(u, v, q);
-        }
+      for (int j = 0; j < kVals; ++j) {
+        const int p = phys(S::mid_pos(tid, 0, j));
+        const uint32_t t = mont_mul(z1[p], w1, q, qi);
+        y[j] = up ? sub_mod(z0[p], t, q) : add_mod(z0[p], t, q);
+      }
+    } else {
+      const uint32_t* z2 = cl.map_shared_rank(buf, 2);
+      const uint32_t* z3 = cl.map_shared_rank(buf, 3);
+      const uint32_t w2 = __ldg(rp + 2 + (c >> 1));
+      const bool up1 = c >> 1, up2 = c & 1;
+#pragma unroll
+      for (int j = 0; j < kVals; ++j) {
+        const int p = phys(S::mid_pos(tid, 0, j));
+        const uint32_t a0 = z0[p], a1 = z1[p];
+        const uint32_t t0 = mont_mul(z2[p], w1, q, qi);
+        const uint32_t t1 = mont_mul(z3[p], w1, q, qi);
+        const uint32_t b0 = up1 ? sub_mod(a0, t0, q) : add_mod(a0, t0, q);
+        const uint32_t b1 = up1 ? sub_mod(a1, t1, q) : add_mod(a1, t1, q);
+        const uint32_t t2 = mont_mul(b1, w2, q, qi);
+        y[j] = up2 ? sub_mod(b0, t2, q) : add_mod(b0, t2, q);
       }
     }
-    uint32_t o = y[0];
-#pragma unroll
-    for (int s = 1; s < NCH; ++s) o = (s == c) ? y[s] : o;
-    buf[i] = o;
-  }
-  __syncthreads();
-  for (int m = NCH; m < n; m <<= 1) {
-    const int t = n / (2 * m);
-    const int lt = __ffs(t) - 1;  // t is a power of two
-    const int gbase = m + c * (C / (2 * t));
-    for (int b = threadIdx.x; b < C / 2; b += blockDim.x) {
-      const int g = b >> lt;
-      const int p0 = (g << (lt + 1)) + (b & (t - 1));
-      const uint32_t u = buf[p0];
-      const uint32_t v = mont_mul(buf[p0 + t], rp[gbase + g], q, qi);
-      buf[p0] = add_mod(u, v, q);
-      buf[p0 + t] = sub_mod(u, v, q);
-    }
+    cl.sync();
+  } else {
     __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kVals; ++j) y[j] = buf[phys(S::mid_pos(tid, 0, j))];
   }
+  radix_set<NCH, 4>(y, rp, 0, S::mid_blk(tid, 0), c, q, qi);
+  constexpr int kStLast = LOGC - S::kLast;
+#pragma unroll
+  for (int st = 4; st < kStLast; st += 4) {
+#pragma unroll
+    for (int j = 0; j < kVals; ++j)
+      buf[phys(S::mid_pos(tid, st - 4, j))] = y[j];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kVals; ++j) y[j] = buf[phys(S::mid_pos(tid, st, j))];
+    radix_set<NCH, 4>(y, rp, st, S::mid_blk(tid, st), c, q, qi);
+  }
+#pragma unroll
+  for (int j = 0; j < kVals; ++j)
+    buf[phys(S::mid_pos(tid, kStLast - 4, j))] = y[j];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kVals; ++j) y[j] = buf[phys(S::last_pos(tid, j))];
+#pragma unroll
+  for (int r = 0; r < (kVals >> S::kLast); ++r)
+    radix_set<NCH, S::kLast>(y + (r << S::kLast), rp, kStLast,
+                             S::last_blk(tid, r << S::kLast), c, q, qi);
+  epi(y);
 }
 
 }  // namespace rt

@@ -15,9 +15,15 @@
 // in shared memory (at most 16384 u32 = 64 KB), the few stages that
 // cross chunks run in registers, and K2 keeps its two evk accumulators
 // in shared memory across the whole digit loop, so a row is written to
-// device memory once. Blocks never depend on one another: where a chunk
-// needs values that belong to other chunks (the first stages of a
-// forward NTT), the block recomputes them instead of synchronising.
+// device memory once.
+//
+// K1's blocks never depend on one another: each owns a whole row. K2 and
+// K3 run a row's forward NTT as one thread-block cluster of its chunk
+// blocks (rt::ntt_fwd_cluster, common.cuh), so each BConv output is
+// formed once in the grid and reaches the other chunks through
+// distributed shared memory; their butterflies run as radix-16 passes in
+// registers with 3 block barriers at C = 16384 instead of one a stage.
+// They need sm_90's cluster launch (cudaLaunchKernelEx).
 //
 // All tensors are u32 residues in int32 storage, row-major, contiguous.
 
@@ -94,16 +100,20 @@ intt_scale_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   }
 }
 
-// K2: per (batch b, target limb t, chunk c): for every digit d, the BConv
-// sum over the digit's source rows, the forward NTT, and the evk
-// multiply-accumulate of both key components, with the digit loop inside
-// the block and both accumulators resident in shared memory throughout.
+// K2: per (batch b, target limb t) row, one cluster of NCH chunk blocks:
+// for every digit d, the BConv sum over the digit's source rows, the
+// forward NTT (rt::ntt_fwd_cluster) and the evk multiply-accumulate of
+// both key components in the last pass's registers, with the digit loop
+// inside the block. The accumulators of digits before the last live in
+// shared memory at the thread's own output positions; the last digit
+// writes them to out.
 // v (B, l, N); w (D, alpha, T); rp (T, N); ksk (D, 2, T, N) ->
-// out (2, B, T, N). grid (NCH, T, B). Shared: 3 * C u32.
+// out (2, B, T, N). grid (NCH, B, T): the B rows that share one tile of
+// ksk run together. Shared: Sched::kSmem + 2 * C u32.
 // Rows past l in the tail digit are skipped: the reference pads them with
 // w = 0, which adds mont_mul(0, 0) = 0, so the sum is bit-equal.
-template <int NCH>
-__global__ void __launch_bounds__(rt::kMaxThreads)
+template <int NCH, int LOGC>
+__global__ void __launch_bounds__(rt::Sched<NCH, LOGC>::kThreads, 1)
 bconv_ntt_mulacc_kernel(const uint32_t* __restrict__ v,
                         const uint32_t* __restrict__ wm,
                         const uint32_t* __restrict__ rp,
@@ -111,55 +121,83 @@ bconv_ntt_mulacc_kernel(const uint32_t* __restrict__ v,
                         const uint32_t* __restrict__ qiv,
                         const uint32_t* __restrict__ ksk,
                         uint32_t* __restrict__ out, int B, int l, int T,
-                        int D, int alpha, int log_n) {
-  extern __shared__ uint32_t sh[];
-  const int c = blockIdx.x, t = blockIdx.y, b = blockIdx.z;
-  const int n = 1 << log_n;
-  const int C = n / NCH;
+                        int D, int alpha) {
+  using S = rt::Sched<NCH, LOGC>;
+  constexpr int V = S::kLast >= 2 ? 4 : 2;  // contiguous outputs a run
+  extern __shared__ __align__(16) uint32_t sh[];
+  const int c = blockIdx.x, b = blockIdx.y, t = blockIdx.z;
+  const int n = NCH * S::C;
   uint32_t* buf = sh;
-  uint32_t* a0 = sh + C;
-  uint32_t* a1 = sh + 2 * C;
+  uint32_t* a0 = sh + S::kSmem;
+  uint32_t* a1 = a0 + S::C;
   const uint32_t q = qv[t], qi = qiv[t];
   const uint32_t* rpt = rp + static_cast<size_t>(t) * n;
+  const size_t row = (static_cast<size_t>(b) * T + t) * n + c * S::C;
+  const size_t half = static_cast<size_t>(B) * T * n;
   for (int d = 0; d < D; ++d) {
     const int j0 = d * alpha;
-    const int j1 = min(j0 + alpha, l);
-    const uint32_t* vd = v + (static_cast<size_t>(b) * l + j0) * n;
+    const int nj = min(alpha, l - j0);
+    const uint32_t* vd = v + (static_cast<size_t>(b) * l + j0) * n + c * S::C;
     const uint32_t* wd = wm + static_cast<size_t>(d) * alpha * T + t;
-    auto bconv = [&](int p) {
-      uint32_t acc = 0;
-      for (int j = 0; j < j1 - j0; ++j)
-        acc = add_mod(acc, mont_mul(vd[static_cast<size_t>(j) * n + p],
-                                    wd[j * T], q, qi), q);
-      return acc;
+    auto conv = [&](int p, uint32_t* o) {
+      o[0] = o[1] = o[2] = o[3] = 0;
+      for (int j = 0; j < nj; ++j) {
+        const uint32_t w = wd[j * T];
+        uint32_t x[4];
+        rt::ldv<4>(vd + static_cast<size_t>(j) * n + p, x);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[e] = add_mod(o[e], mont_mul(x[e], w, q, qi), q);
+      }
     };
-    rt::ntt_fwd_chunk<NCH>(buf, bconv, rpt, q, qi, n, c);
     const uint32_t* k0 =
-        ksk + (static_cast<size_t>(2 * d) * T + t) * n + c * C;
-    const uint32_t* k1 =
-        ksk + (static_cast<size_t>(2 * d + 1) * T + t) * n + c * C;
-    for (int i = threadIdx.x; i < C; i += blockDim.x) {
-      const uint32_t p0 = mont_mul(buf[i], k0[i], q, qi);
-      const uint32_t p1 = mont_mul(buf[i], k1[i], q, qi);
-      a0[i] = d == 0 ? p0 : add_mod(a0[i], p0, q);
-      a1[i] = d == 0 ? p1 : add_mod(a1[i], p1, q);
-    }
-    __syncthreads();
-  }
-  const size_t row = (static_cast<size_t>(b) * T + t) * n + c * C;
-  const size_t half = static_cast<size_t>(B) * T * n;
-  for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    out[row + i] = a0[i];
-    out[half + row + i] = a1[i];
+        ksk + (static_cast<size_t>(2 * d) * T + t) * n + c * S::C;
+    const uint32_t* k1 = k0 + static_cast<size_t>(T) * n;
+    auto epi = [&](const uint32_t* y) {
+#pragma unroll
+      for (int r = 0; r < rt::kVals / V; ++r) {
+        const int p = S::last_pos(threadIdx.x, r * V);
+        uint32_t x0[V], x1[V], p0[V], p1[V];
+        rt::ldv<V>(k0 + p, x0);
+        rt::ldv<V>(k1 + p, x1);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          p0[e] = mont_mul(y[r * V + e], x0[e], q, qi);
+          p1[e] = mont_mul(y[r * V + e], x1[e], q, qi);
+        }
+        if (d > 0) {
+          rt::ldv<V>(a0 + p, x0);
+          rt::ldv<V>(a1 + p, x1);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            p0[e] = add_mod(x0[e], p0[e], q);
+            p1[e] = add_mod(x1[e], p1[e], q);
+          }
+        }
+        if (d == D - 1) {
+          rt::stv<V>(out + row + p, p0);
+          rt::stv<V>(out + half + row + p, p1);
+        } else {
+          rt::stv<V>(a0 + p, p0);
+          rt::stv<V>(a1 + p, p1);
+        }
+      }
+    };
+    rt::ntt_fwd_cluster<NCH, LOGC>(buf, conv, epi, rpt, q, qi, c);
+    // the next digit's BConv writes the runs of 4 this thread just read,
+    // unless the last pass read other positions
+    if (S::kLast != 2) __syncthreads();
   }
 }
 
-// K3: per (batch b', Q-limb i, chunk c): BConv P->Q of the special limbs,
-// forward NTT, subtraction from the Q-limb, times P^-1.
+// K3: per (batch b', Q-limb i) row, one cluster of NCH chunk blocks:
+// BConv P->Q of the special limbs, forward NTT (rt::ntt_fwd_cluster), and
+// in the last pass's registers the subtraction from the Q-limb and the
+// product by P^-1.
 // g (2B, T, N); vp (2B, n_p, N); wpq (n_p, l); rp (T, N) (row i used);
-// pinv (l) -> out (2B, l, N). grid (NCH, l, 2B). Shared: C u32.
-template <int NCH>
-__global__ void __launch_bounds__(rt::kMaxThreads)
+// pinv (l) -> out (2B, l, N). grid (NCH, l, 2B). Shared: Sched::kSmem u32.
+template <int NCH, int LOGC>
+__global__ void __launch_bounds__(rt::Sched<NCH, LOGC>::kThreads, 1)
 moddown_kernel(const uint32_t* __restrict__ g,
                const uint32_t* __restrict__ vp,
                const uint32_t* __restrict__ wpq,
@@ -167,26 +205,41 @@ moddown_kernel(const uint32_t* __restrict__ g,
                const uint32_t* __restrict__ qv,
                const uint32_t* __restrict__ qiv,
                const uint32_t* __restrict__ pinv, uint32_t* __restrict__ out,
-               int l, int T, int n_p, int log_n) {
-  extern __shared__ uint32_t buf[];
+               int l, int T, int n_p) {
+  using S = rt::Sched<NCH, LOGC>;
+  constexpr int V = S::kLast >= 2 ? 4 : 2;
+  extern __shared__ __align__(16) uint32_t sh[];
   const int c = blockIdx.x, i = blockIdx.y, bb = blockIdx.z;
-  const int n = 1 << log_n;
-  const int C = n / NCH;
+  const int n = NCH * S::C;
   const uint32_t q = qv[i], qi = qiv[i], pi = pinv[i];
-  const uint32_t* vb = vp + static_cast<size_t>(bb) * n_p * n;
-  auto bconv = [&](int p) {
-    uint32_t acc = 0;
-    for (int j = 0; j < n_p; ++j)
-      acc = add_mod(acc, mont_mul(vb[static_cast<size_t>(j) * n + p],
-                                  wpq[j * l + i], q, qi), q);
-    return acc;
+  const uint32_t* vb = vp + static_cast<size_t>(bb) * n_p * n + c * S::C;
+  auto conv = [&](int p, uint32_t* o) {
+    o[0] = o[1] = o[2] = o[3] = 0;
+    for (int j = 0; j < n_p; ++j) {
+      const uint32_t w = wpq[j * l + i];
+      uint32_t x[4];
+      rt::ldv<4>(vb + static_cast<size_t>(j) * n + p, x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[e] = add_mod(o[e], mont_mul(x[e], w, q, qi), q);
+    }
   };
-  rt::ntt_fwd_chunk<NCH>(buf, bconv, rp + static_cast<size_t>(i) * n, q, qi,
-                         n, c);
-  const uint32_t* aq = g + (static_cast<size_t>(bb) * T + i) * n + c * C;
-  uint32_t* o = out + (static_cast<size_t>(bb) * l + i) * n + c * C;
-  for (int k = threadIdx.x; k < C; k += blockDim.x)
-    o[k] = mont_mul(sub_mod(aq[k], buf[k], q), pi, q, qi);
+  const uint32_t* aq = g + (static_cast<size_t>(bb) * T + i) * n + c * S::C;
+  uint32_t* o = out + (static_cast<size_t>(bb) * l + i) * n + c * S::C;
+  auto epi = [&](const uint32_t* y) {
+#pragma unroll
+    for (int r = 0; r < rt::kVals / V; ++r) {
+      const int p = S::last_pos(threadIdx.x, r * V);
+      uint32_t x[V];
+      rt::ldv<V>(aq + p, x);
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        x[e] = mont_mul(sub_mod(x[e], y[r * V + e], q), pi, q, qi);
+      rt::stv<V>(o + p, x);
+    }
+  };
+  rt::ntt_fwd_cluster<NCH, LOGC>(sh, conv, epi,
+                                 rp + static_cast<size_t>(i) * n, q, qi, c);
 }
 
 // ---------------------------------------------------------------------------
@@ -204,6 +257,89 @@ moddown_kernel(const uint32_t* __restrict__ g,
     if (e_ != cudaSuccess) return e_;                                        \
     KERNEL<NCH><<<GRID, rt::block_threads(C_), SMEM, STREAM>>>(__VA_ARGS__); \
   } while (0)
+
+// One launch of a cluster kernel (K2, K3): grid (NCH, y, z) in clusters of
+// (NCH, 1, 1), none for NCH = 1. With `info` set, nothing is launched: the
+// launch's shape, cudaOccupancyMaxActiveClusters (blocks per SM times SMs
+// for NCH = 1), registers and local memory per thread are written there.
+struct ClusterLaunch {
+  dim3 grid;
+  int threads;
+  size_t smem;
+  int nch;
+  cudaStream_t stream;
+  int* info;  // [grid x, y, z, cluster, threads, smem, active clusters,
+              //  registers, local bytes]
+};
+
+template <class... P, class... A>
+static int cluster_launch(const ClusterLaunch& L, void (*kernel)(P...),
+                          A... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L.smem));
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L.nch;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = L.grid;
+  cfg.blockDim = dim3(L.threads);
+  cfg.dynamicSmemBytes = L.smem;
+  cfg.stream = L.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = L.nch > 1 ? 1 : 0;
+  if (L.info == nullptr) {
+    e = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  }
+  int active = 0;
+  if (L.nch > 1) {
+    e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  } else {
+    int dev = 0, sms = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&active, kernel,
+                                                        L.threads, L.smem);
+    active *= sms;
+  }
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  const int vals[9] = {static_cast<int>(L.grid.x), static_cast<int>(L.grid.y),
+                       static_cast<int>(L.grid.z), L.nch, L.threads,
+                       static_cast<int>(L.smem), active, fa.numRegs,
+                       static_cast<int>(fa.localSizeBytes)};
+  for (int k = 0; k < 9; ++k) L.info[k] = vals[k];
+  return cudaSuccess;
+}
+
+// (NCH, LOGC) of a row of 2^log_n: one chunk up to rt::kChunk words, then
+// clusters of 2 and 4 chunks of rt::kChunk.
+#define RT_BY_LOG_N(FN, ...)                                   \
+  switch (log_n) {                                             \
+    case 5: return FN<1, 5>(__VA_ARGS__);                      \
+    case 6: return FN<1, 6>(__VA_ARGS__);                      \
+    case 7: return FN<1, 7>(__VA_ARGS__);                      \
+    case 8: return FN<1, 8>(__VA_ARGS__);                      \
+    case 9: return FN<1, 9>(__VA_ARGS__);                      \
+    case 10: return FN<1, 10>(__VA_ARGS__);                    \
+    case 11: return FN<1, 11>(__VA_ARGS__);                    \
+    case 12: return FN<1, 12>(__VA_ARGS__);                    \
+    case 13: return FN<1, 13>(__VA_ARGS__);                    \
+    case 14: return FN<1, 14>(__VA_ARGS__);                    \
+    case 15: return FN<2, 14>(__VA_ARGS__);                    \
+    case 16: return FN<4, 14>(__VA_ARGS__);                    \
+    default: return cudaErrorInvalidValue;                     \
+  }
+static_assert(rt::kChunk == 1 << 14, "RT_BY_LOG_N assumes 16384-word chunks");
 
 extern "C" int rt_intt_scale(const void* x, void* out, const void* irp,
                              const void* q, const void* qi, const void* sc,
@@ -231,59 +367,66 @@ extern "C" int rt_intt_scale(const void* x, void* out, const void* irp,
   return cudaGetLastError();
 }
 
+static const uint32_t* U(const void* p) {
+  return static_cast<const uint32_t*>(p);
+}
+
+template <int NCH, int LOGC>
+static int k2_launch(int* info, cudaStream_t st, const uint32_t* v,
+                     const uint32_t* w, const uint32_t* rp,
+                     const uint32_t* q, const uint32_t* qi,
+                     const uint32_t* ksk, uint32_t* out, int B, int l, int T,
+                     int D, int alpha) {
+  using S = rt::Sched<NCH, LOGC>;
+  const ClusterLaunch L{dim3(NCH, B, T), S::kThreads,
+                        sizeof(uint32_t) * (S::kSmem + 2 * S::C), NCH, st,
+                        info};
+  return cluster_launch(L, bconv_ntt_mulacc_kernel<NCH, LOGC>, v, w, rp, q,
+                        qi, ksk, out, B, l, T, D, alpha);
+}
+
+template <int NCH, int LOGC>
+static int k3_launch(int* info, cudaStream_t st, const uint32_t* g,
+                     const uint32_t* vp, const uint32_t* wpq,
+                     const uint32_t* rp, const uint32_t* q,
+                     const uint32_t* qi, const uint32_t* pinv, uint32_t* out,
+                     int B2, int l, int T, int n_p) {
+  using S = rt::Sched<NCH, LOGC>;
+  const ClusterLaunch L{dim3(NCH, l, B2), S::kThreads,
+                        sizeof(uint32_t) * S::kSmem, NCH, st, info};
+  return cluster_launch(L, moddown_kernel<NCH, LOGC>, g, vp, wpq, rp, q, qi,
+                        pinv, out, l, T, n_p);
+}
+
 extern "C" int rt_bconv_ntt_mulacc(const void* v, const void* w,
                                    const void* rp, const void* q,
                                    const void* qi, const void* ksk,
                                    void* out, int B, int l, int T, int D,
                                    int alpha, int log_n, void* stream) {
-  const int nch = rt::n_chunks(log_n);
-  const dim3 grid(nch, T, B);
-  const size_t smem =
-      3 * sizeof(uint32_t) * ((1 << log_n) / (nch ? nch : 1));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* vu = static_cast<const uint32_t*>(v);
-  const auto* wu = static_cast<const uint32_t*>(w);
-  const auto* ru = static_cast<const uint32_t*>(rp);
-  const auto* qu = static_cast<const uint32_t*>(q);
-  const auto* qiu = static_cast<const uint32_t*>(qi);
-  const auto* ku = static_cast<const uint32_t*>(ksk);
-  auto* ou = static_cast<uint32_t*>(out);
-  switch (nch) {
-    case 1: RT_LAUNCH(bconv_ntt_mulacc_kernel, 1, grid, smem, st, vu, wu, ru,
-                      qu, qiu, ku, ou, B, l, T, D, alpha, log_n); break;
-    case 2: RT_LAUNCH(bconv_ntt_mulacc_kernel, 2, grid, smem, st, vu, wu, ru,
-                      qu, qiu, ku, ou, B, l, T, D, alpha, log_n); break;
-    case 4: RT_LAUNCH(bconv_ntt_mulacc_kernel, 4, grid, smem, st, vu, wu, ru,
-                      qu, qiu, ku, ou, B, l, T, D, alpha, log_n); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  RT_BY_LOG_N(k2_launch, nullptr, static_cast<cudaStream_t>(stream), U(v),
+              U(w), U(rp), U(q), U(qi), U(ksk), static_cast<uint32_t*>(out),
+              B, l, T, D, alpha)
 }
 
 extern "C" int rt_moddown(const void* g, const void* vp, const void* wpq,
                           const void* rp, const void* q, const void* qi,
                           const void* pinv, void* out, int B2, int l, int T,
                           int n_p, int log_n, void* stream) {
-  const int nch = rt::n_chunks(log_n);
-  const dim3 grid(nch, l, B2);
-  const size_t smem = sizeof(uint32_t) * ((1 << log_n) / (nch ? nch : 1));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* gu = static_cast<const uint32_t*>(g);
-  const auto* vu = static_cast<const uint32_t*>(vp);
-  const auto* wu = static_cast<const uint32_t*>(wpq);
-  const auto* ru = static_cast<const uint32_t*>(rp);
-  const auto* qu = static_cast<const uint32_t*>(q);
-  const auto* qiu = static_cast<const uint32_t*>(qi);
-  const auto* pu = static_cast<const uint32_t*>(pinv);
-  auto* ou = static_cast<uint32_t*>(out);
-  switch (nch) {
-    case 1: RT_LAUNCH(moddown_kernel, 1, grid, smem, st, gu, vu, wu, ru, qu,
-                      qiu, pu, ou, l, T, n_p, log_n); break;
-    case 2: RT_LAUNCH(moddown_kernel, 2, grid, smem, st, gu, vu, wu, ru, qu,
-                      qiu, pu, ou, l, T, n_p, log_n); break;
-    case 4: RT_LAUNCH(moddown_kernel, 4, grid, smem, st, gu, vu, wu, ru, qu,
-                      qiu, pu, ou, l, T, n_p, log_n); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  RT_BY_LOG_N(k3_launch, nullptr, static_cast<cudaStream_t>(stream), U(g),
+              U(vp), U(wpq), U(rp), U(q), U(qi), U(pinv),
+              static_cast<uint32_t*>(out), B2, l, T, n_p)
+}
+
+// The launch rt_bconv_ntt_mulacc / rt_moddown would make at these sizes,
+// written to info[9] (see ClusterLaunch); nothing runs.
+extern "C" int rt_bconv_ntt_mulacc_info(int* info, int B, int l, int T,
+                                        int D, int alpha, int log_n) {
+  RT_BY_LOG_N(k2_launch, info, nullptr, nullptr, nullptr, nullptr, nullptr,
+              nullptr, nullptr, nullptr, B, l, T, D, alpha)
+}
+
+extern "C" int rt_moddown_info(int* info, int B2, int l, int T, int n_p,
+                               int log_n) {
+  RT_BY_LOG_N(k3_launch, info, nullptr, nullptr, nullptr, nullptr, nullptr,
+              nullptr, nullptr, nullptr, nullptr, B2, l, T, n_p)
 }

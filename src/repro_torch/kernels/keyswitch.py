@@ -9,14 +9,15 @@ it as FOUR launches, whatever the digit count, limb count or batch:
   A  K1 ``intt_scale``        grid (l, B):    inverse NTT of every Q limb
      with n^{-1}·qhat^{-1} folded into one Montgomery multiply (digits
      partition the Q limbs, so this is ModUp's front half for all digits)
-  B  K2 ``bconv_ntt_mulacc``  grid (chunks, T, B): per target limb, the
-     BConv sum, the forward NTT and the evk multiply-accumulate of both
-     key components, with the digit loop inside the block and the
-     accumulators on chip
+  B  K2 ``bconv_ntt_mulacc``  grid (chunks, B, T) in clusters of the
+     chunks of a row: per target limb, the BConv sum, the forward NTT and
+     the evk multiply-accumulate of both key components, with the digit
+     loop inside the block and the accumulators on chip
   C1 K1 ``intt_scale``        grid (n_p, 2B): inverse NTT of the special
      limbs of both accumulators, scale n^{-1}·phat^{-1}
-  C2 K3 ``moddown``           grid (chunks, l, 2B): BConv P->Q, forward
-     NTT, subtraction from the Q limbs, times P^{-1}
+  C2 K3 ``moddown``           grid (chunks, l, 2B) in clusters of the
+     chunks of a row: BConv P->Q, forward NTT, subtraction from the Q
+     limbs, times P^{-1}
 
 ``keyswitch_staged`` runs the same keyswitch as one dispatch per stage
 (7·digits + 10), through K4-K6 and the library NTTs: the baseline the
@@ -35,6 +36,7 @@ bytes moved and integer multiplies; see that source for the design.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Dict, Tuple
 
@@ -57,6 +59,7 @@ BCONV_NTT_MULACC = register_kernel("bconv_ntt_mulacc", SRC,
 MODDOWN = register_kernel("moddown", SRC, "src/repro/kernels/keyswitch.py:144")
 
 MAX_LOG_N = 16          # csrc/common.cuh: at most 4 chunks of 16384
+MIN_LOG_N = 5           # K2, K3: a chunk of at least 32 words (2 threads)
 
 
 def _check_n(n: int) -> int:
@@ -65,6 +68,17 @@ def _check_n(n: int) -> int:
         raise ValueError(f"ring degree {n}: the keyswitch kernels take a "
                          f"power of two up to 2^{MAX_LOG_N}")
     return log_n
+
+
+def _check_cluster_operands(log_n: int, *tensors) -> None:
+    """K2 and K3 move rows in 16-byte runs and split a row into chunks
+    of at least 32 words."""
+    if log_n < MIN_LOG_N:
+        raise ValueError(f"ring degree 2^{log_n}: K2 and K3 take at least "
+                         f"2^{MIN_LOG_N}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("K2/K3 operands must start 16-byte aligned")
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +118,116 @@ def _gs_stages(x, irp, q, qi):
         x = torch.cat([addmod32(u, v, qq), d], dim=-1).reshape(*lead, n)
         m //= 2
     return x
+
+
+# ---------------------------------------------------------------------------
+# the kernels' forward-NTT schedule, modelled on the CPU (for the tests)
+# ---------------------------------------------------------------------------
+# K2 and K3 run the forward NTT of a row as NCH chunk blocks of one
+# thread-block cluster (csrc/common.cuh::ntt_fwd_cluster). The functions
+# below are that schedule on int64 tensors, with the same index formulas,
+# so that its index math is held to `_ct_stages` where no card is.
+
+SCHED_VALS = 16         # values one thread holds (csrc/common.cuh kVals)
+
+
+def sched_phys(p):
+    """Padded shared-memory word of chunk position p: 4 pad words after
+    every 64, so that no access of the schedule hits a bank twice."""
+    return p + ((p >> 6) << 2)
+
+
+def sched_passes(log_c: int):
+    """(first local stage, radix log) of each in-chunk pass: radix-16
+    passes from the top, the last one takes the remaining 1-4 stages."""
+    last = (log_c - 1) % 4 + 1
+    return ([(st, 4) for st in range(0, log_c - last, 4)]
+            + [(log_c - last, last)])
+
+
+def sched_run_pos(log_c: int, tid, j):
+    """Position of value j of thread tid in the BConv phase and the
+    epilogues: four runs of 4 contiguous words."""
+    threads = 1 << (log_c - 4)
+    return ((tid + threads * (j >> 2)) << 2) + (j & 3)
+
+
+def sched_pos(log_c: int, st: int, lr: int, tid, j):
+    """(position, set) of value j of thread tid in the pass that starts
+    at local stage st with radix 2^lr. A radix-16 pass above the last
+    holds 16 values at the stride of its last stage; the last pass holds
+    16 / 2^lr sets of 2^lr contiguous values."""
+    if st + lr < log_c:
+        kq = 1 << (log_c - st - 4)
+        blk = tid >> (log_c - st - 4)
+        pos = (blk << (log_c - st)) + (tid & (kq - 1)) + j * kq
+        return pos, blk + 0 * j
+    blk = tid + (1 << (log_c - 4)) * (j >> lr)
+    return (blk << lr) + (j & ((1 << lr) - 1)), blk
+
+
+def _sched_radix(y, rp, q, qi, nch, c, st, lr, blk):
+    """lr butterfly stages on the 16 values of each thread (sets of
+    2^lr), twiddle rp[m + c·2^(st+s) + blk·2^s + h] at stage s."""
+    jj = torch.arange(SCHED_VALS)
+    r = 1 << lr
+    y = y.clone()
+    for s in range(lr):
+        half = r >> (s + 1)
+        lo = jj[(jj & half) == 0]
+        hi = lo + half
+        h = (lo & (r - 1)) >> (lr - s)
+        idx = (nch << (st + s)) + (c << (st + s)) + (blk[:, lo] << s) + h
+        u, v = y[..., lo], mont_mul32(y[..., hi], rp[:, idx], q, qi)
+        y[..., lo], y[..., hi] = addmod32(u, v, q), submod32(u, v, q)
+    return y
+
+
+def ntt_fwd_sched(x, rp, q, qi, nch: int):
+    """x (R, n) residues (int64), rp (R, n) Montgomery twiddles, q, qi
+    (R, 1) -> (R, n): the forward NTT of `_ct_stages`, computed as K2 and
+    K3 compute it: each of the NCH chunk blocks forms its chunk of x once
+    into its padded buffer; after a cluster barrier every thread gathers
+    the NCH values i + s·C of its 16 positions from the peers and runs the
+    cross-chunk stages keeping its own chunk's half; after a second
+    barrier each block runs the in-chunk radix passes on its own buffer."""
+    rows, n = x.shape
+    c_len = n // nch
+    log_c = c_len.bit_length() - 1
+    tid = torch.arange(c_len >> 4)[:, None]
+    j = torch.arange(SCHED_VALS)[None, :]
+    qq, qiq = q[:, :, None], qi[:, :, None]
+    run = sched_run_pos(log_c, tid, j)
+    bufs = torch.zeros((nch, rows, sched_phys(c_len - 1) + 1),
+                       dtype=x.dtype)
+    for c in range(nch):
+        bufs[c][:, sched_phys(run)] = x[:, c * c_len + run]
+    passes = sched_passes(log_c)
+    p0, _ = sched_pos(log_c, *passes[0], tid, j)
+    gathered = []
+    for c in range(nch):                  # between the two cluster barriers
+        z = [bufs[s][:, sched_phys(p0)] for s in range(nch)]
+        m = 1
+        while m < nch:
+            tt = nch // (2 * m)
+            w = rp[:, m + c // (2 * tt)][:, None, None]
+            op = submod32 if (c // tt) & 1 else addmod32
+            z = [op(z[k], mont_mul32(z[k + tt], w, qq, qiq), qq)
+                 for k in range(tt)]
+            m *= 2
+        gathered.append(z[0])
+    out = torch.empty_like(x)
+    for c in range(nch):                  # each block on its own buffer
+        y = gathered[c]
+        for i, (st, lr) in enumerate(passes):
+            pos, blk = sched_pos(log_c, st, lr, tid, j)
+            if i:
+                y = bufs[c][:, sched_phys(pos)]
+            y = _sched_radix(y, rp, qq, qiq, nch, c, st, lr, blk)
+            if i < len(passes) - 1:
+                bufs[c][:, sched_phys(pos)] = y
+        out[:, c * c_len + pos] = y
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +306,7 @@ def bconv_ntt_mulacc(v: torch.Tensor, w_m, rp_m, q32, qi32, ksk_m,
     if not use_kernel(v, w_m, rp_m, q32, qi32, ksk_m):
         return bconv_ntt_mulacc_plain(v, w_m, rp_m, q32, qi32, ksk_m, alpha)
     out = torch.empty((2, b, t_n, n), dtype=I32, device=v.device)
+    _check_cluster_operands(log_n, v, ksk_m, out)
     fn = build.bind(build.library("keyswitch.cu"), "rt_bconv_ntt_mulacc",
                     7, 6)
     build.launch(fn, v.data_ptr(), w_m.data_ptr(), rp_m.data_ptr(),
@@ -230,12 +355,36 @@ def moddown(g: torch.Tensor, vp, wpq_m, rp_m, q32, qi32,
     if not use_kernel(g, vp, wpq_m, rp_m, q32, qi32, pinv_m):
         return moddown_plain(g, vp, wpq_m, rp_m, q32, qi32, pinv_m)
     out = torch.empty((b2, l, n), dtype=I32, device=g.device)
+    _check_cluster_operands(log_n, g, vp, out)
     fn = build.bind(build.library("keyswitch.cu"), "rt_moddown", 8, 5)
     build.launch(fn, g.data_ptr(), vp.data_ptr(), wpq_m.data_ptr(),
                  rp_m.data_ptr(), q32.data_ptr(), qi32.data_ptr(),
                  pinv_m.data_ptr(), out.data_ptr(), b2, l, t_n, n_p, log_n)
     MODDOWN.launches += 1
     return out
+
+
+def launch_info(name: str, n: int, *dims: int) -> Dict[str, int]:
+    """The launch K2 (`name` "bconv_ntt_mulacc", dims B, l, T, D, alpha)
+    or K3 ("moddown", dims 2B, l, T, n_p) makes at ring degree n on the
+    current card, without running it: grid, cluster size, threads,
+    dynamic shared memory, cudaOccupancyMaxActiveClusters (blocks per SM
+    times SMs where there is no cluster), registers and local memory per
+    thread."""
+    entry = {"bconv_ntt_mulacc": ("rt_bconv_ntt_mulacc_info", 5),
+             "moddown": ("rt_moddown_info", 4)}[name]
+    if len(dims) != entry[1]:
+        raise ValueError(f"{name}: {entry[1]} dims, got {len(dims)}")
+    fn = getattr(build.library("keyswitch.cu"), entry[0])
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * (entry[1] + 1)
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 9)()
+    err = fn(ctypes.addressof(info), *dims, _check_n(n))
+    if err != 0:
+        raise RuntimeError(f"{entry[0]}: CUDA error {err}")
+    keys = ("grid_x", "grid_y", "grid_z", "cluster", "threads", "smem_bytes",
+            "max_active_clusters", "registers", "local_bytes")
+    return dict(zip(keys, info))
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,10 @@ the card with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Covers every chunking of the NTT kernels (N = 2^10: one chunk in shared
-memory; 2^15: two; 2^16: four), a 32-bit special prime, ragged tail
-digits, a ragged K4 row length, and one launch count per wrapper call;
-K5 (mulacc), K6 (bconv, eager and lazy) and K7 (ntt_col + ntt_row) at
+memory; 2^15: a cluster of two; 2^16: of four), K2 and K3 at batch 8
+with the 32-bit prime among the special primes, ragged tail digits, a
+ragged K4 row length, and one launch count per wrapper call; K5
+(mulacc), K6 (bconv, eager and lazy) and K7 (ntt_col + ntt_row) at
 ragged N, at the 32-bit prime 3221225473, with K7's block-divisibility
 error, and the staged keyswitch against the library route.
 Imports nothing of JAX, so it runs where only torch is installed.
@@ -90,6 +91,48 @@ def test_kernels_equal_plain_and_library(cuda, log_n):
         e0, e1 = fks.apply(d2, level, km)
         r0, r1 = hops.key_switch(ctx, d2, level, rk)
         assert torch.equal(e0, r0) and torch.equal(e1, r1)
+
+
+def test_cluster_kernels_full_batch_32bit_special_prime(cuda):
+    """K2 and K3 at logN = 16 (clusters of 4 chunks of 16384), B = 8,
+    two digits of 6 (level 11) and a ragged tail (level 8), with the
+    32-bit prime among the special primes of the key; then the whole
+    fused keyswitch against the library route."""
+    params = CkksParams(log_n=16, log_scale=28, n_levels=11, dnum=2,
+                        first_mod_bits=31, scale_mod_bits=28,
+                        special_mod_bits=31)
+    ctx = CkksContext(params, cuda)
+    assert Q32 in ctx.p_primes
+    rk = CkksEncryptor(ctx, seed=5).relin_keygen(
+        CkksEncryptor(ctx, seed=5).keygen())
+    fks = ks.FusedKeySwitch(ctx)
+    for level in (11, 8):
+        t = fks._tables(level)
+        l, t_n = level + 1, level + 1 + t.n_p
+        km = fks.ksk_mont("relin", level, rk.data)
+        d2 = _d2(ctx, 8, level, seed=level)
+        v = ks.intt_scale(d2.to(torch.int32), 0, l, t.q_irp_m, t.q_q32,
+                          t.q_qi32, t.q_scale_m)
+        a2 = (v, t.w_m, t.rp_m, t.t_q32, t.t_qi32, km, t.alpha)
+        before = (ks.BCONV_NTT_MULACC.launches, ks.MODDOWN.launches)
+        acc = ks.bconv_ntt_mulacc(*a2)
+        assert torch.equal(acc, ks.bconv_ntt_mulacc_plain(*a2))
+        g = acc.reshape(16, t_n, ctx.n)
+        vp = ks.intt_scale(g, l, t.n_p, t.p_irp_m, t.p_q32, t.p_qi32,
+                           t.p_scale_m)
+        a3 = (g, vp, t.wpq_m, t.rp_m, t.t_q32, t.t_qi32, t.pinv_m)
+        assert torch.equal(ks.moddown(*a3), ks.moddown_plain(*a3))
+        assert (ks.BCONV_NTT_MULACC.launches, ks.MODDOWN.launches) == (
+            before[0] + 1, before[1] + 1)
+        e0, e1 = fks.apply(d2, level, km)
+        r0, r1 = hops.key_switch(ctx, d2, level, rk)
+        assert torch.equal(e0, r0) and torch.equal(e1, r1)
+    for name, dims in (("bconv_ntt_mulacc", (8, l, t_n, t.n_digits,
+                                             t.alpha)),
+                       ("moddown", (16, l, t_n, t.n_p))):
+        info = ks.launch_info(name, ctx.n, *dims)
+        assert info["cluster"] == 4 and info["threads"] == 1024, info
+        assert info["max_active_clusters"] > 0, info
 
 
 def test_modmul_ragged_and_counted(cuda):
