@@ -19,12 +19,17 @@ non-zero:
    version (20 back-to-back calls between CUDA events, a sleep kernel
    holding the device while the host enqueues them), the host's time to
    enqueue one call, the kernel's bound, and a one-call library
-   yardstick where one exists; for K2 and K3 (cluster kernels) also
-   the launch's grid, cluster size, threads, shared memory,
-   cudaOccupancyMaxActiveClusters, registers and local memory;
+   yardstick where one exists; K1 at both of its launch shapes (stage A
+   over the Q limbs, C1 over the special limbs), each its own row; for
+   K1-K3 (cluster kernels) and ntt_col also the launch's grid, cluster
+   size, threads, shared memory, cudaOccupancyMaxActiveClusters (blocks
+   resident at once for ntt_col), registers and local memory, as the
+   built library reports them;
 3. keyswitch — the 4-launch fused keyswitch against the library
    core/ops.key_switch, relin and Galois key, bit-equal, 4 dispatches
-   per apply, and its time per call at B = 8;
+   per apply, its time per call at B = 8, and its device time split
+   into the steps FusedKeySwitch.steps lists (the cast in, K1, K2,
+   K1 (C1), K3, the cast out);
 4. staged — the dispatch-per-stage keyswitch (K4-K6 + library NTTs) at
    level 20, relin and Galois key: bit-equal to the fused and the
    library keyswitch, 7 * 4 + 10 = 38 dispatches, K4-K6 launched;
@@ -38,7 +43,7 @@ non-zero:
 
 Launch counts are set to 0 just before each of the staged, fig14 and
 serve paths and read just after. Then a JSON line of per-kernel numbers
-(all nine kernels, launches per path), the card's name and power limit
+(all ten kernel rows, launches per path), the card's name and power limit
 from nvidia-smi, and the final status line. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -74,7 +79,8 @@ Q32 = 3221225473    # paper_params_bootstrap's 32-bit special prime
 
 # kernels each driven path must launch, and the path whose count is a
 # kernel's `launches` in the JSON line
-SERVE_KERNELS = ("intt_scale", "bconv_ntt_mulacc", "moddown", "modmul")
+SERVE_KERNELS = ("intt_scale", "bconv_ntt_mulacc", "intt_scale(C1)",
+                 "moddown", "modmul")
 STAGED_KERNELS = ("modmul", "mulacc", "bconv")
 FIG14_KERNELS = ("modmul", "mulacc", "bconv", "bconv_lazy", "ntt_col",
                  "ntt_row")
@@ -190,7 +196,7 @@ def main() -> int:
 
     params = paper_params_bootstrap()
     rows = {}
-    launch = {}         # K2, K3: launch shape and occupancy at level 20
+    launch = {}         # K1-K3, ntt_col: launch shape at level 20
 
     with Phase("kernels"):
         ctx = CkksContext(params, dev)
@@ -260,16 +266,19 @@ def main() -> int:
             g = acc.reshape(2 * BATCH, t_n, n)
             a1c = (g, l, n_p, t.p_irp_m, t.p_q32, t.p_qi32, t.p_scale_m)
             vp, e1c = compare(f"intt_scale(C1)@{level}",
-                              lambda: ks.intt_scale(*a1c),
+                              lambda: ks.intt_scale(
+                                  *a1c, counter=ks.INTT_SCALE_C1),
                               lambda: ks.intt_scale_plain(*a1c))
             a3 = (g, vp, t.wpq_m, t.rp_m, t.t_q32, t.t_qi32, t.pinv_m)
             _, e3 = compare(f"moddown@{level}",
                             lambda: ks.moddown(*a3),
                             lambda: ks.moddown_plain(*a3))
-            for name, dims in (("bconv_ntt_mulacc", (BATCH, l, t_n, d_n,
+            for name, dims in (("intt_scale", (BATCH, l, l)),
+                               ("bconv_ntt_mulacc", (BATCH, l, t_n, d_n,
                                                      t.alpha)),
+                               ("intt_scale(C1)", (2 * BATCH, t_n, n_p)),
                                ("moddown", (2 * BATCH, l, t_n, n_p))):
-                info = ks.launch_info(name, n, *dims)
+                info = ks.launch_info(name.split("(")[0], n, *dims)
                 if level == LEVEL:
                     launch[name] = info
                 blocks = info["grid_x"] * info["grid_y"] * info["grid_z"]
@@ -306,6 +315,8 @@ def main() -> int:
             # written once (u32 = 4 bytes; K4's a and out are int64)
             k1_bytes = 4 * (B * l * n * 2 + l * n + 3 * l)
             k1_ops = B * l * (ntt_ops(n) + n * MONT)
+            k1c_bytes = 4 * (2 * B * n_p * n * 2 + n_p * n + 3 * n_p)
+            k1c_ops = 2 * B * n_p * (ntt_ops(n) + n * MONT)
             k2_bytes = 4 * (B * l * n + D * al * t_n + t_n * n
                             + D * 2 * t_n * n + 2 * B * t_n * n + 2 * t_n)
             k2_ops = B * t_n * (l * n * (MONT + ADD) + D * ntt_ops(n)
@@ -321,6 +332,10 @@ def main() -> int:
                  lambda: ks.intt_scale_plain(*a1), k1_bytes, k1_ops, None),
                 ("bconv_ntt_mulacc", e2, lambda: ks.bconv_ntt_mulacc(*a2),
                  lambda: ks.bconv_ntt_mulacc_plain(*a2), k2_bytes, k2_ops,
+                 None),
+                ("intt_scale(C1)", e1c, lambda: ks.intt_scale(
+                    *a1c, counter=ks.INTT_SCALE_C1),
+                 lambda: ks.intt_scale_plain(*a1c), k1c_bytes, k1c_ops,
                  None),
                 ("moddown", e3, lambda: ks.moddown(*a3),
                  lambda: ks.moddown_plain(*a3), k3_bytes, k3_ops, None),
@@ -400,6 +415,15 @@ def main() -> int:
             _, e7r = compare(f"ntt_row@q={q7}",
                              lambda: kntt.ntt_row(y7, kt, 8),
                              lambda: kntt.ntt_row_plain(y7, kt))
+        info = kntt.launch_info(log_r, c7)
+        launch["ntt_col"] = info
+        print(f"  ntt_col launch: grid ({info['grid_x']}) of "
+              f"{c7 // info['grid_x']} columns, {info['threads']} threads, "
+              f"{info['smem_bytes']} B dynamic shared memory, "
+              f"{info['max_active_clusters']} blocks resident at once "
+              f"({info['grid_x'] / info['max_active_clusters']:.2f} "
+              f"waves), {info['registers']} registers, "
+              f"{info['local_bytes']} B local memory a thread", flush=True)
         measure("ntt_col", e7c, lambda: kntt.ntt_col(a7, kt, 128),
                 lambda: kntt.ntt_col_plain(a7, kt),
                 8 * n + 4 * n + 4 * r7 + 8, c7 * ntt_ops(r7))
@@ -411,6 +435,22 @@ def main() -> int:
               f"and K7 (N={n}, R=C={r7}) torch.equal to their plain "
               f"versions, ragged N={n - RAGGED} and q={Q32} included",
               flush=True)
+
+    def split_keyswitch(d2, level, km, whole_ms):
+        """Device time of each step of FusedKeySwitch.apply, on the
+        operands apply gives it, beside the time of the whole call."""
+        steps = fks.steps(d2, level, km)
+        res = {}
+        for name, fn in steps:
+            res[name] = fn(res)
+        parts = {name: device_ms(torch, lambda fn=fn: fn(res))[0]
+                 for name, fn in steps}
+        total = sum(parts.values())
+        print("  fused keyswitch device time split (relin, B = "
+              f"{BATCH}): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                        parts.items())
+              + f" ms; sum {total:.4f} ms against {whole_ms:.4f} ms for "
+              f"the whole call", flush=True)
 
     with Phase("keyswitch"):
         level = LEVEL
@@ -439,6 +479,8 @@ def main() -> int:
                   f"at B = {BATCH} ({dev_f:.3f} ms device time over "
                   f"{REPS} calls, host {host_f:.3f} ms to enqueue one), "
                   f"library {ms_l:.3f} ms", flush=True)
+            if key_id == "relin":
+                split_keyswitch(d2, level, km, dev_f)
 
     paths = {}
     with Phase("staged"):

@@ -20,8 +20,7 @@ namespace rt {
 
 // Largest row chunk a block keeps in shared memory (u32 elements). A
 // full row at N = 65536 is 256 KB, above the 227 KB a block may use, so
-// an NTT at that size runs its cross-chunk stages on registers and its
-// local stages on one 64 KB chunk in shared memory.
+// an NTT at that size runs as a cluster of chunk blocks (below).
 constexpr int kChunk = 16384;
 constexpr int kMaxThreads = 1024;
 
@@ -48,21 +47,6 @@ __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
 __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
                                             uint32_t q) {
   return a >= b ? a - b : a + (q - b);
-}
-
-// Number of chunks a row of n = 2^log_n splits into (1, 2 or 4); 0 if
-// the row is larger than the kernels support.
-inline int n_chunks(int log_n) {
-  const int n = 1 << log_n;
-  if (n <= kChunk) return 1;
-  if (n == 2 * kChunk) return 2;
-  if (n == 4 * kChunk) return 4;
-  return 0;
-}
-
-inline int block_threads(int chunk) {
-  const int half = chunk / 2;
-  return half < 32 ? 32 : (half > kMaxThreads ? kMaxThreads : half);
 }
 
 // ---------------------------------------------------------------------------
@@ -152,11 +136,15 @@ __device__ __forceinline__ void stv(uint32_t* p, const uint32_t* v) {
 // Butterfly stage S of a radix-2^LR set of values in registers, the set
 // starting at local stage st: set blk of chunk c takes twiddle
 // rp[(NCH << (st+S)) + (c << (st+S)) + (blk << S) + h] for subgroup h.
+// Forward (INV false): Harvey CT, (u, v) -> (u + w v, u - w v). Inverse:
+// Gentleman-Sande, (u, v) -> (u + v, (u - v) w), the inverse twiddles in
+// the same layout (core/ntt.py), so a GS stage of stride t uses the
+// twiddle of the CT stage of that stride.
 // Stages are template arguments so that every loop bound is a constant
 // and the values stay in registers (a loop bound that depends on an
 // outer loop's counter leaves the array indexed at run time, in local
 // memory).
-template <int NCH, int LR, int S>
+template <int NCH, int LR, int S, bool INV>
 __device__ __forceinline__ void radix_stage(uint32_t* y, const uint32_t* rp,
                                             int st, int blk, int c,
                                             uint32_t q, uint32_t qi) {
@@ -170,28 +158,37 @@ __device__ __forceinline__ void radix_stage(uint32_t* y, const uint32_t* rp,
     for (int k = 0; k < half; ++k) {
       uint32_t& u = y[2 * half * h + k];
       uint32_t& v = y[2 * half * h + k + half];
-      const uint32_t t = mont_mul(v, w, q, qi);
-      v = sub_mod(u, t, q);
-      u = add_mod(u, t, q);
+      if constexpr (INV) {
+        const uint32_t d = sub_mod(u, v, q);
+        u = add_mod(u, v, q);
+        v = mont_mul(d, w, q, qi);
+      } else {
+        const uint32_t t = mont_mul(v, w, q, qi);
+        v = sub_mod(u, t, q);
+        u = add_mod(u, t, q);
+      }
     }
   }
 }
 
-template <int NCH, int LR, int... S>
+// The forward runs the set's stages from the largest stride down, the
+// inverse from the smallest up.
+template <int NCH, int LR, bool INV, int... S>
 __device__ __forceinline__ void radix_stages(uint32_t* y, const uint32_t* rp,
                                              int st, int blk, int c,
                                              uint32_t q, uint32_t qi,
                                              std::integer_sequence<int, S...>) {
-  (radix_stage<NCH, LR, S>(y, rp, st, blk, c, q, qi), ...);
+  (radix_stage<NCH, LR, INV ? LR - 1 - S : S, INV>(y, rp, st, blk, c, q, qi),
+   ...);
 }
 
 // All LR stages of one set.
-template <int NCH, int LR>
+template <int NCH, int LR, bool INV = false>
 __device__ __forceinline__ void radix_set(uint32_t* y, const uint32_t* rp,
                                           int st, int blk, int c,
                                           uint32_t q, uint32_t qi) {
-  radix_stages<NCH, LR>(y, rp, st, blk, c, q, qi,
-                        std::make_integer_sequence<int, LR>{});
+  radix_stages<NCH, LR, INV>(y, rp, st, blk, c, q, qi,
+                             std::make_integer_sequence<int, LR>{});
 }
 
 // conv(p, o): o[0..3] = input at chunk positions p..p+3 (p % 4 == 0).
@@ -276,6 +273,176 @@ __device__ __forceinline__ void ntt_fwd_cluster(uint32_t* buf, Conv conv,
     radix_set<NCH, S::kLast>(y + (r << S::kLast), rp, kStLast,
                              S::last_blk(tid, r << S::kLast), c, q, qi);
   epi(y);
+}
+
+// ---------------------------------------------------------------------------
+// inverse NTT of one row in a thread-block cluster (K1)
+// ---------------------------------------------------------------------------
+// Gentleman-Sande inverse NTT without n^-1 (kernels/keyswitch.py::_gs_stages:
+// bit-reversed in, natural out, Montgomery twiddles irp in the layout of
+// core/ntt.py) of a row of n = NCH * C, C = 2^LOGC: the mirror image of
+// ntt_fwd_cluster, with the same Sched. Block c of the cluster owns
+// positions [c*C, (c+1)*C); its C / 16 threads hold kVals = 16 values each.
+//  1. GS runs the small strides first. Each thread loads its 16 / 2^kLast
+//     sets of 2^kLast contiguous values (Sched::last_pos) straight from
+//     device memory in 8- or 16-byte words and runs their kLast stages in
+//     registers.
+//  2. The other in-chunk stages as radix-16 passes (Sched::mid_pos), from
+//     local stage LOGC - kLast - 4 down to 0, through the padded buffer,
+//     one block barrier between two passes (3 at C = 16384). Each thread
+//     reads and writes the same positions within a pass.
+//  3. NCH > 1: the block writes its chunk to its buffer; cluster barrier;
+//     every thread reads, for each of its 16 positions i, the NCH values
+//     i + s*C from the peers' buffers (distributed shared memory) and runs
+//     the log2(NCH) cross-chunk stages in registers, keeping only its own
+//     chunk's output; a second cluster barrier, so that no block exits
+//     while a peer still reads its buffer.
+// On return y[j] is output position Sched::mid_pos(threadIdx.x, 0, j) =
+// threadIdx.x + j * C / 16 of chunk c: a warp's stores are coalesced.
+// src: the chunk's first input word (16-byte aligned); buf: Sched::kSmem
+// words of shared memory. kernels/keyswitch.py::intt_sched models this
+// schedule on the CPU with the same index formulas. Every sum is formed
+// in 64 bits (q < 2^32); no butterfly is lazy.
+template <int NCH, int LOGC>
+__device__ __forceinline__ void intt_cluster(uint32_t* buf,
+                                             const uint32_t* src, uint32_t* y,
+                                             const uint32_t* irp, uint32_t q,
+                                             uint32_t qi, int c) {
+  using S = Sched<NCH, LOGC>;
+  constexpr int L = S::kLast;
+  constexpr int V = L >= 2 ? 4 : 2;       // contiguous words a load
+  constexpr int kStLast = LOGC - L;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kVals / V; ++r)
+    ldv<V>(src + S::last_pos(tid, r * V), y + r * V);
+#pragma unroll
+  for (int r = 0; r < (kVals >> L); ++r)
+    radix_set<NCH, L, true>(y + (r << L), irp, kStLast,
+                            S::last_blk(tid, r << L), c, q, qi);
+#pragma unroll
+  for (int r = 0; r < kVals / V; ++r)
+    stv<V>(buf + phys(S::last_pos(tid, r * V)), y + r * V);
+  __syncthreads();
+#pragma unroll
+  for (int st = kStLast - 4; st >= 0; st -= 4) {
+#pragma unroll
+    for (int j = 0; j < kVals; ++j) y[j] = buf[phys(S::mid_pos(tid, st, j))];
+    radix_set<NCH, 4, true>(y, irp, st, S::mid_blk(tid, st), c, q, qi);
+    if (st > 0) {
+#pragma unroll
+      for (int j = 0; j < kVals; ++j)
+        buf[phys(S::mid_pos(tid, st, j))] = y[j];
+      __syncthreads();
+    }
+  }
+  if constexpr (NCH > 1) {
+    static_assert(NCH == 2 || NCH == 4, "clusters of 2 or 4 chunks");
+#pragma unroll
+    for (int j = 0; j < kVals; ++j) buf[phys(S::mid_pos(tid, 0, j))] = y[j];
+    cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+    cl.sync();
+    // GS stage of chunk stride t pairs chunks s and s + t under twiddle
+    // irp[NCH / (2t) + s / (2t)]; block c keeps the sum where bit log2(t)
+    // of c is 0, else the twiddled difference.
+    const uint32_t* z0 = cl.map_shared_rank(buf, 0);
+    const uint32_t* z1 = cl.map_shared_rank(buf, 1);
+    const uint32_t w1 = __ldg(irp + 1);
+    if constexpr (NCH == 2) {
+#pragma unroll
+      for (int j = 0; j < kVals; ++j) {
+        const int p = phys(S::mid_pos(tid, 0, j));
+        const uint32_t a0 = z0[p], a1 = z1[p];
+        y[j] = c ? mont_mul(sub_mod(a0, a1, q), w1, q, qi)
+                 : add_mod(a0, a1, q);
+      }
+    } else {
+      const uint32_t* z2 = cl.map_shared_rank(buf, 2);
+      const uint32_t* z3 = cl.map_shared_rank(buf, 3);
+      const uint32_t w2 = __ldg(irp + 2), w3 = __ldg(irp + 3);
+      const bool odd = c & 1, up = c >> 1;
+#pragma unroll
+      for (int j = 0; j < kVals; ++j) {
+        const int p = phys(S::mid_pos(tid, 0, j));
+        const uint32_t a0 = z0[p], a1 = z1[p], a2 = z2[p], a3 = z3[p];
+        const uint32_t b0 = odd ? mont_mul(sub_mod(a0, a1, q), w2, q, qi)
+                                : add_mod(a0, a1, q);
+        const uint32_t b1 = odd ? mont_mul(sub_mod(a2, a3, q), w3, q, qi)
+                                : add_mod(a2, a3, q);
+        y[j] = up ? mont_mul(sub_mod(b0, b1, q), w1, q, qi)
+                  : add_mod(b0, b1, q);
+      }
+    }
+    cl.sync();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launching a kernel, or reporting the launch it would make
+// ---------------------------------------------------------------------------
+
+// One launch of a kernel in clusters of (NCH, 1, 1), none for NCH = 1
+// (K1, K2 and K3 with NCH blocks a row; ntt_col with NCH = 1). With
+// `info` set, nothing is launched: the launch's shape,
+// cudaOccupancyMaxActiveClusters (blocks per SM times SMs for NCH = 1),
+// registers and local memory per thread are written there.
+struct ClusterLaunch {
+  dim3 grid;
+  int threads;
+  size_t smem;
+  int nch;
+  cudaStream_t stream;
+  int* info;  // [grid x, y, z, cluster, threads, smem, active clusters,
+              //  registers, local bytes]
+};
+
+template <class... P, class... A>
+inline int cluster_launch(const ClusterLaunch& L, void (*kernel)(P...),
+                          A... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L.smem));
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L.nch;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = L.grid;
+  cfg.blockDim = dim3(L.threads);
+  cfg.dynamicSmemBytes = L.smem;
+  cfg.stream = L.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = L.nch > 1 ? 1 : 0;
+  if (L.info == nullptr) {
+    e = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  }
+  int active = 0;
+  if (L.nch > 1) {
+    e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  } else {
+    int dev = 0, sms = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&active, kernel,
+                                                        L.threads, L.smem);
+    active *= sms;
+  }
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  const int vals[9] = {static_cast<int>(L.grid.x), static_cast<int>(L.grid.y),
+                       static_cast<int>(L.grid.z), L.nch, L.threads,
+                       static_cast<int>(L.smem), active, fa.numRegs,
+                       static_cast<int>(fa.localSizeBytes)};
+  for (int k = 0; k < 9; ++k) L.info[k] = vals[k];
+  return cudaSuccess;
 }
 
 }  // namespace rt

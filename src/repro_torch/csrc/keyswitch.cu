@@ -17,87 +17,52 @@
 // in shared memory across the whole digit loop, so a row is written to
 // device memory once.
 //
-// K1's blocks never depend on one another: each owns a whole row. K2 and
-// K3 run a row's forward NTT as one thread-block cluster of its chunk
-// blocks (rt::ntt_fwd_cluster, common.cuh), so each BConv output is
-// formed once in the grid and reaches the other chunks through
-// distributed shared memory; their butterflies run as radix-16 passes in
-// registers with 3 block barriers at C = 16384 instead of one a stage.
-// They need sm_90's cluster launch (cudaLaunchKernelEx).
+// The three run a row's NTT as one thread-block cluster of its chunk
+// blocks: the inverse (K1, rt::intt_cluster) and the forward (K2, K3,
+// rt::ntt_fwd_cluster, common.cuh). A row crosses device memory once: the
+// values of the cross-chunk stages reach the other chunks through
+// distributed shared memory, so K2 and K3 form each BConv output once in
+// the grid and K1 reads and writes each word once. The in-chunk
+// butterflies run as radix-16 passes in registers with 3 block barriers at
+// C = 16384 instead of one a stage. They need sm_90's cluster launch
+// (cudaLaunchKernelEx).
 //
 // All tensors are u32 residues in int32 storage, row-major, contiguous.
 
 #include "common.cuh"
 
 using rt::add_mod;
+using rt::cluster_launch;
+using rt::ClusterLaunch;
 using rt::mont_mul;
 using rt::sub_mod;
 
-// K1: per (batch r, limb j) row, GS inverse NTT without n^-1, then one
-// Montgomery multiply by the limb's scale. Rows [row0, row0 + n_rows) of
-// x (R, S, N) -> out (R, n_rows, N). grid (n_rows, R), one block a row.
-// Local GS stages (strides < C) run chunk by chunk in shared memory and
-// land in `out`; the cross-chunk stages then run in registers over out.
-template <int NCH>
-__global__ void __launch_bounds__(rt::kMaxThreads)
+// K1: per (batch r, limb j) row, one cluster of NCH chunk blocks: GS
+// inverse NTT without n^-1 (rt::intt_cluster), then one Montgomery
+// multiply by the limb's scale. Rows [row0, row0 + n_rows) of x (R, S, N)
+// -> out (R, n_rows, N). grid (NCH, n_rows, R). Shared: Sched::kSmem u32.
+template <int NCH, int LOGC>
+__global__ void __launch_bounds__(rt::Sched<NCH, LOGC>::kThreads, 1)
 intt_scale_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
                   const uint32_t* __restrict__ irp,
                   const uint32_t* __restrict__ qv,
                   const uint32_t* __restrict__ qiv,
                   const uint32_t* __restrict__ scv, int S, int row0,
-                  int n_rows, int log_n) {
-  extern __shared__ uint32_t buf[];
-  const int j = blockIdx.x;
-  const int r = blockIdx.y;
-  const int n = 1 << log_n;
-  const int C = n / NCH;
+                  int n_rows) {
+  using Sc = rt::Sched<NCH, LOGC>;
+  extern __shared__ __align__(16) uint32_t sh[];
+  const int c = blockIdx.x, j = blockIdx.y, r = blockIdx.z;
+  const int n = NCH * Sc::C;
   const uint32_t q = qv[j], qi = qiv[j], sc = scv[j];
-  const uint32_t* src = x + (static_cast<size_t>(r) * S + row0 + j) * n;
-  uint32_t* dst = out + (static_cast<size_t>(r) * n_rows + j) * n;
-  const uint32_t* w = irp + static_cast<size_t>(j) * n;
-
-  for (int c = 0; c < NCH; ++c) {
-    for (int i = threadIdx.x; i < C; i += blockDim.x) buf[i] = src[c * C + i];
-    __syncthreads();
-    for (int t = 1; t < C; t <<= 1) {
-      const int lt = __ffs(t) - 1;
-      const int gbase = n / (2 * t) + c * (C / (2 * t));
-      for (int b = threadIdx.x; b < C / 2; b += blockDim.x) {
-        const int g = b >> lt;
-        const int p0 = (g << (lt + 1)) + (b & (t - 1));
-        const uint32_t u = buf[p0], v = buf[p0 + t];
-        buf[p0] = add_mod(u, v, q);
-        buf[p0 + t] = mont_mul(sub_mod(u, v, q), w[gbase + g], q, qi);
-      }
-      __syncthreads();
-    }
-    for (int i = threadIdx.x; i < C; i += blockDim.x)
-      dst[c * C + i] = NCH == 1 ? mont_mul(buf[i], sc, q, qi) : buf[i];
-    __syncthreads();
-  }
-  if (NCH == 1) return;
-  for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    uint32_t y[NCH];
+  const uint32_t* src =
+      x + (static_cast<size_t>(r) * S + row0 + j) * n + c * Sc::C;
+  uint32_t* dst = out + (static_cast<size_t>(r) * n_rows + j) * n + c * Sc::C;
+  uint32_t y[rt::kVals];
+  rt::intt_cluster<NCH, LOGC>(sh, src, y, irp + static_cast<size_t>(j) * n,
+                              q, qi, c);
 #pragma unroll
-    for (int s = 0; s < NCH; ++s) y[s] = dst[i + s * C];
-#pragma unroll
-    for (int m = NCH / 2; m >= 1; m >>= 1) {
-      const int tt = NCH / (2 * m);
-#pragma unroll
-      for (int g = 0; g < m; ++g) {
-        const uint32_t wg = w[m + g];
-#pragma unroll
-        for (int k = 0; k < tt; ++k) {
-          const int s0 = g * 2 * tt + k;
-          const uint32_t u = y[s0], v = y[s0 + tt];
-          y[s0] = add_mod(u, v, q);
-          y[s0 + tt] = mont_mul(sub_mod(u, v, q), wg, q, qi);
-        }
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < NCH; ++s) dst[i + s * C] = mont_mul(y[s], sc, q, qi);
-  }
+  for (int k = 0; k < rt::kVals; ++k)
+    dst[Sc::mid_pos(threadIdx.x, 0, k)] = mont_mul(y[k], sc, q, qi);
 }
 
 // K2: per (batch b, target limb t) row, one cluster of NCH chunk blocks:
@@ -246,81 +211,6 @@ moddown_kernel(const uint32_t* __restrict__ g,
 // C entries: return the launch's cudaGetLastError() (0 on success)
 // ---------------------------------------------------------------------------
 
-// Opt the kernel into SMEM bytes of dynamic shared memory (above 48 KB it
-// must ask), then launch it; a refused attribute is returned at once.
-#define RT_LAUNCH(KERNEL, NCH, GRID, SMEM, STREAM, ...)                      \
-  do {                                                                       \
-    const int C_ = (1 << log_n) / (NCH);                                     \
-    cudaError_t e_ = cudaFuncSetAttribute(                                   \
-        KERNEL<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,            \
-        static_cast<int>(SMEM));                                             \
-    if (e_ != cudaSuccess) return e_;                                        \
-    KERNEL<NCH><<<GRID, rt::block_threads(C_), SMEM, STREAM>>>(__VA_ARGS__); \
-  } while (0)
-
-// One launch of a cluster kernel (K2, K3): grid (NCH, y, z) in clusters of
-// (NCH, 1, 1), none for NCH = 1. With `info` set, nothing is launched: the
-// launch's shape, cudaOccupancyMaxActiveClusters (blocks per SM times SMs
-// for NCH = 1), registers and local memory per thread are written there.
-struct ClusterLaunch {
-  dim3 grid;
-  int threads;
-  size_t smem;
-  int nch;
-  cudaStream_t stream;
-  int* info;  // [grid x, y, z, cluster, threads, smem, active clusters,
-              //  registers, local bytes]
-};
-
-template <class... P, class... A>
-static int cluster_launch(const ClusterLaunch& L, void (*kernel)(P...),
-                          A... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.smem));
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = L.nch;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = L.grid;
-  cfg.blockDim = dim3(L.threads);
-  cfg.dynamicSmemBytes = L.smem;
-  cfg.stream = L.stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = L.nch > 1 ? 1 : 0;
-  if (L.info == nullptr) {
-    e = cudaLaunchKernelEx(&cfg, kernel, args...);
-    if (e != cudaSuccess) return e;
-    return cudaGetLastError();
-  }
-  int active = 0;
-  if (L.nch > 1) {
-    e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
-  } else {
-    int dev = 0, sms = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&active, kernel,
-                                                        L.threads, L.smem);
-    active *= sms;
-  }
-  if (e != cudaSuccess) return e;
-  cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, kernel);
-  if (e != cudaSuccess) return e;
-  const int vals[9] = {static_cast<int>(L.grid.x), static_cast<int>(L.grid.y),
-                       static_cast<int>(L.grid.z), L.nch, L.threads,
-                       static_cast<int>(L.smem), active, fa.numRegs,
-                       static_cast<int>(fa.localSizeBytes)};
-  for (int k = 0; k < 9; ++k) L.info[k] = vals[k];
-  return cudaSuccess;
-}
-
 // (NCH, LOGC) of a row of 2^log_n: one chunk up to rt::kChunk words, then
 // clusters of 2 and 4 chunks of rt::kChunk.
 #define RT_BY_LOG_N(FN, ...)                                   \
@@ -341,34 +231,20 @@ static int cluster_launch(const ClusterLaunch& L, void (*kernel)(P...),
   }
 static_assert(rt::kChunk == 1 << 14, "RT_BY_LOG_N assumes 16384-word chunks");
 
-extern "C" int rt_intt_scale(const void* x, void* out, const void* irp,
-                             const void* q, const void* qi, const void* sc,
-                             int R, int S, int row0, int n_rows, int log_n,
-                             void* stream) {
-  const int nch = rt::n_chunks(log_n);
-  const dim3 grid(n_rows, R);
-  const size_t smem = sizeof(uint32_t) * ((1 << log_n) / (nch ? nch : 1));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* xu = static_cast<const uint32_t*>(x);
-  auto* ou = static_cast<uint32_t*>(out);
-  const auto* wu = static_cast<const uint32_t*>(irp);
-  const auto* qu = static_cast<const uint32_t*>(q);
-  const auto* qiu = static_cast<const uint32_t*>(qi);
-  const auto* su = static_cast<const uint32_t*>(sc);
-  switch (nch) {
-    case 1: RT_LAUNCH(intt_scale_kernel, 1, grid, smem, st, xu, ou, wu, qu,
-                      qiu, su, S, row0, n_rows, log_n); break;
-    case 2: RT_LAUNCH(intt_scale_kernel, 2, grid, smem, st, xu, ou, wu, qu,
-                      qiu, su, S, row0, n_rows, log_n); break;
-    case 4: RT_LAUNCH(intt_scale_kernel, 4, grid, smem, st, xu, ou, wu, qu,
-                      qiu, su, S, row0, n_rows, log_n); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
 static const uint32_t* U(const void* p) {
   return static_cast<const uint32_t*>(p);
+}
+
+template <int NCH, int LOGC>
+static int k1_launch(int* info, cudaStream_t st, const uint32_t* x,
+                     uint32_t* out, const uint32_t* irp, const uint32_t* q,
+                     const uint32_t* qi, const uint32_t* sc, int R, int S,
+                     int row0, int n_rows) {
+  using Sc = rt::Sched<NCH, LOGC>;
+  const ClusterLaunch L{dim3(NCH, n_rows, R), Sc::kThreads,
+                        sizeof(uint32_t) * Sc::kSmem, NCH, st, info};
+  return cluster_launch(L, intt_scale_kernel<NCH, LOGC>, x, out, irp, q, qi,
+                        sc, S, row0, n_rows);
 }
 
 template <int NCH, int LOGC>
@@ -398,6 +274,15 @@ static int k3_launch(int* info, cudaStream_t st, const uint32_t* g,
                         pinv, out, l, T, n_p);
 }
 
+extern "C" int rt_intt_scale(const void* x, void* out, const void* irp,
+                             const void* q, const void* qi, const void* sc,
+                             int R, int S, int row0, int n_rows, int log_n,
+                             void* stream) {
+  RT_BY_LOG_N(k1_launch, nullptr, static_cast<cudaStream_t>(stream), U(x),
+              static_cast<uint32_t*>(out), U(irp), U(q), U(qi), U(sc), R, S,
+              row0, n_rows)
+}
+
 extern "C" int rt_bconv_ntt_mulacc(const void* v, const void* w,
                                    const void* rp, const void* q,
                                    const void* qi, const void* ksk,
@@ -417,8 +302,14 @@ extern "C" int rt_moddown(const void* g, const void* vp, const void* wpq,
               static_cast<uint32_t*>(out), B2, l, T, n_p)
 }
 
-// The launch rt_bconv_ntt_mulacc / rt_moddown would make at these sizes,
-// written to info[9] (see ClusterLaunch); nothing runs.
+// The launch rt_intt_scale / rt_bconv_ntt_mulacc / rt_moddown would make
+// at these sizes, written to info[9] (see rt::ClusterLaunch); nothing runs.
+extern "C" int rt_intt_scale_info(int* info, int R, int S, int n_rows,
+                                  int log_n) {
+  RT_BY_LOG_N(k1_launch, info, nullptr, nullptr, nullptr, nullptr, nullptr,
+              nullptr, nullptr, R, S, 0, n_rows)
+}
+
 extern "C" int rt_bconv_ntt_mulacc_info(int* info, int B, int l, int T,
                                         int D, int alpha, int log_n) {
   RT_BY_LOG_N(k2_launch, info, nullptr, nullptr, nullptr, nullptr, nullptr,

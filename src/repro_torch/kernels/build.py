@@ -109,3 +109,22 @@ def launch(fn, *args) -> None:
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+
+
+LAUNCH_KEYS = ("grid_x", "grid_y", "grid_z", "cluster", "threads",
+               "smem_bytes", "max_active_clusters", "registers",
+               "local_bytes")
+
+
+def launch_info(source: str, name: str, *dims: int) -> Dict[str, int]:
+    """Call a C entry `int name(int* info, int x len(dims))` that writes
+    the launch its kernel would make (csrc/common.cuh::ClusterLaunch)
+    without running it, and return that launch by `LAUNCH_KEYS`."""
+    fn = getattr(library(source), name)
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * len(dims)
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(LAUNCH_KEYS))()
+    err = fn(ctypes.addressof(info), *dims)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    return dict(zip(LAUNCH_KEYS, info))

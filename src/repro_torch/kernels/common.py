@@ -133,3 +133,76 @@ def as_i32(values, device) -> torch.Tensor:
 def u32(t: torch.Tensor) -> torch.Tensor:
     """int32 bit pattern -> int64 holding the unsigned value."""
     return t.to(torch.int64) & MASK32
+
+
+# ---------------------------------------------------------------------------
+# the radix-pass schedule of csrc/common.cuh (rt::Sched), on the CPU
+# ---------------------------------------------------------------------------
+# The NTT kernels (K1-K3 per chunk of a row, K7's ntt_col per column) give
+# an NTT of C = 2^log_c points to C / 16 threads holding 16 values each and
+# run its stages as radix passes in registers. These are Sched's index
+# formulas; the models built from them (keyswitch.ntt_fwd_sched,
+# keyswitch.intt_sched, ntt.ntt_col_sched) hold them to the plain NTTs.
+
+SCHED_VALS = 16         # values one thread holds (csrc/common.cuh kVals)
+
+
+def sched_phys(p):
+    """Padded shared-memory word of chunk position p: 4 pad words after
+    every 64, so that no access of the schedule hits a bank twice."""
+    return p + ((p >> 6) << 2)
+
+
+def sched_passes(log_c: int):
+    """(first local stage, radix log) of each in-chunk pass: radix-16
+    passes from the top, the last one takes the remaining 1-4 stages.
+    The inverse NTT runs them in the opposite order."""
+    last = (log_c - 1) % 4 + 1
+    return ([(st, 4) for st in range(0, log_c - last, 4)]
+            + [(log_c - last, last)])
+
+
+def sched_run_pos(log_c: int, tid, j):
+    """Position of value j of thread tid in the BConv phase and the
+    epilogues: four runs of 4 contiguous words."""
+    threads = 1 << (log_c - 4)
+    return ((tid + threads * (j >> 2)) << 2) + (j & 3)
+
+
+def sched_pos(log_c: int, st: int, lr: int, tid, j):
+    """(position, set) of value j of thread tid in the pass that starts
+    at local stage st with radix 2^lr. A radix-16 pass above the last
+    holds 16 values at the stride of its last stage; the last pass holds
+    16 / 2^lr sets of 2^lr contiguous values."""
+    if st + lr < log_c:
+        kq = 1 << (log_c - st - 4)
+        blk = tid >> (log_c - st - 4)
+        pos = (blk << (log_c - st)) + (tid & (kq - 1)) + j * kq
+        return pos, blk + 0 * j
+    blk = tid + (1 << (log_c - 4)) * (j >> lr)
+    return (blk << lr) + (j & ((1 << lr) - 1)), blk
+
+
+def sched_radix(y, rp, q, qi, nch, c, st, lr, blk, inverse=False):
+    """lr butterfly stages on the values of each thread (the last axis of
+    y, sets of 2^lr), twiddle rp[m + c·2^(st+s) + blk·2^s + h] at stage s:
+    Harvey CT from the largest stride down, or (inverse) Gentleman-Sande
+    from the smallest stride up, as csrc/common.cuh::radix_stage."""
+    jj = torch.arange(y.shape[-1])
+    r = 1 << lr
+    y = y.clone()
+    for s in (reversed(range(lr)) if inverse else range(lr)):
+        half = r >> (s + 1)
+        lo = jj[(jj & half) == 0]
+        hi = lo + half
+        h = (lo & (r - 1)) >> (lr - s)
+        w = rp[:, (nch << (st + s)) + (c << (st + s)) + (blk[:, lo] << s)
+               + h]
+        u, v = y[..., lo], y[..., hi]
+        if inverse:
+            y[..., lo] = addmod32(u, v, q)
+            y[..., hi] = mont_mul32(submod32(u, v, q), w, q, qi)
+        else:
+            v = mont_mul32(v, w, q, qi)
+            y[..., lo], y[..., hi] = addmod32(u, v, q), submod32(u, v, q)
+    return y

@@ -6,15 +6,16 @@ Replaces `repro/kernels/keyswitch.py`. Generalized dnum key switching
 then the evk inner product, then ModDown. This module runs the whole of
 it as FOUR launches, whatever the digit count, limb count or batch:
 
-  A  K1 ``intt_scale``        grid (l, B):    inverse NTT of every Q limb
-     with n^{-1}·qhat^{-1} folded into one Montgomery multiply (digits
-     partition the Q limbs, so this is ModUp's front half for all digits)
+  A  K1 ``intt_scale``        grid (chunks, l, B) in clusters of the
+     chunks of a row: inverse NTT of every Q limb with n^{-1}·qhat^{-1}
+     folded into one Montgomery multiply (digits partition the Q limbs,
+     so this is ModUp's front half for all digits)
   B  K2 ``bconv_ntt_mulacc``  grid (chunks, B, T) in clusters of the
      chunks of a row: per target limb, the BConv sum, the forward NTT and
      the evk multiply-accumulate of both key components, with the digit
      loop inside the block and the accumulators on chip
-  C1 K1 ``intt_scale``        grid (n_p, 2B): inverse NTT of the special
-     limbs of both accumulators, scale n^{-1}·phat^{-1}
+  C1 K1 ``intt_scale``        grid (chunks, n_p, 2B): inverse NTT of the
+     special limbs of both accumulators, scale n^{-1}·phat^{-1}
   C2 K3 ``moddown``           grid (chunks, l, 2B) in clusters of the
      chunks of a row: BConv P->Q, forward NTT, subtraction from the Q
      limbs, times P^{-1}
@@ -36,30 +37,35 @@ bytes moved and integer multiplies; see that source for the design.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.core import modarith as ma
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.common import (addmod32, as_i32, check, mont_mul32,
-                                        qinv_neg32, record_dispatch,
-                                        register_kernel, submod32,
+from repro_torch.kernels.common import (SCHED_VALS, addmod32, as_i32,
+                                        check, mont_mul32, qinv_neg32,
+                                        record_dispatch, register_kernel,
+                                        sched_passes, sched_phys, sched_pos,
+                                        sched_radix, sched_run_pos, submod32,
                                         to_mont_int, u32, use_kernel)
 
 I32 = torch.int32
 SRC = "src/repro_torch/csrc/keyswitch.cu"
+# K1 has two launch shapes, counted apart: stage A (every Q limb of the
+# batch) and C1 (the special limbs of both accumulators)
 INTT_SCALE = register_kernel("intt_scale", SRC,
                              "src/repro/kernels/keyswitch.py:103")
+INTT_SCALE_C1 = register_kernel("intt_scale(C1)", SRC,
+                                "src/repro/kernels/keyswitch.py:103")
 BCONV_NTT_MULACC = register_kernel("bconv_ntt_mulacc", SRC,
                                    "src/repro/kernels/keyswitch.py:113")
 MODDOWN = register_kernel("moddown", SRC, "src/repro/kernels/keyswitch.py:144")
 
 MAX_LOG_N = 16          # csrc/common.cuh: at most 4 chunks of 16384
-MIN_LOG_N = 5           # K2, K3: a chunk of at least 32 words (2 threads)
+MIN_LOG_N = 5           # K1-K3: a chunk of at least 32 words (2 threads)
 
 
 def _check_n(n: int) -> int:
@@ -71,14 +77,14 @@ def _check_n(n: int) -> int:
 
 
 def _check_cluster_operands(log_n: int, *tensors) -> None:
-    """K2 and K3 move rows in 16-byte runs and split a row into chunks
-    of at least 32 words."""
+    """K1-K3 move rows in 16-byte runs and split a row into chunks of at
+    least 32 words."""
     if log_n < MIN_LOG_N:
-        raise ValueError(f"ring degree 2^{log_n}: K2 and K3 take at least "
+        raise ValueError(f"ring degree 2^{log_n}: K1-K3 take at least "
                          f"2^{MIN_LOG_N}")
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError("K2/K3 operands must start 16-byte aligned")
+            raise ValueError("K1-K3 operands must start 16-byte aligned")
 
 
 # ---------------------------------------------------------------------------
@@ -121,67 +127,14 @@ def _gs_stages(x, irp, q, qi):
 
 
 # ---------------------------------------------------------------------------
-# the kernels' forward-NTT schedule, modelled on the CPU (for the tests)
+# the kernels' NTT schedules, modelled on the CPU (for the tests)
 # ---------------------------------------------------------------------------
-# K2 and K3 run the forward NTT of a row as NCH chunk blocks of one
-# thread-block cluster (csrc/common.cuh::ntt_fwd_cluster). The functions
-# below are that schedule on int64 tensors, with the same index formulas,
-# so that its index math is held to `_ct_stages` where no card is.
-
-SCHED_VALS = 16         # values one thread holds (csrc/common.cuh kVals)
-
-
-def sched_phys(p):
-    """Padded shared-memory word of chunk position p: 4 pad words after
-    every 64, so that no access of the schedule hits a bank twice."""
-    return p + ((p >> 6) << 2)
-
-
-def sched_passes(log_c: int):
-    """(first local stage, radix log) of each in-chunk pass: radix-16
-    passes from the top, the last one takes the remaining 1-4 stages."""
-    last = (log_c - 1) % 4 + 1
-    return ([(st, 4) for st in range(0, log_c - last, 4)]
-            + [(log_c - last, last)])
-
-
-def sched_run_pos(log_c: int, tid, j):
-    """Position of value j of thread tid in the BConv phase and the
-    epilogues: four runs of 4 contiguous words."""
-    threads = 1 << (log_c - 4)
-    return ((tid + threads * (j >> 2)) << 2) + (j & 3)
-
-
-def sched_pos(log_c: int, st: int, lr: int, tid, j):
-    """(position, set) of value j of thread tid in the pass that starts
-    at local stage st with radix 2^lr. A radix-16 pass above the last
-    holds 16 values at the stride of its last stage; the last pass holds
-    16 / 2^lr sets of 2^lr contiguous values."""
-    if st + lr < log_c:
-        kq = 1 << (log_c - st - 4)
-        blk = tid >> (log_c - st - 4)
-        pos = (blk << (log_c - st)) + (tid & (kq - 1)) + j * kq
-        return pos, blk + 0 * j
-    blk = tid + (1 << (log_c - 4)) * (j >> lr)
-    return (blk << lr) + (j & ((1 << lr) - 1)), blk
-
-
-def _sched_radix(y, rp, q, qi, nch, c, st, lr, blk):
-    """lr butterfly stages on the 16 values of each thread (sets of
-    2^lr), twiddle rp[m + c·2^(st+s) + blk·2^s + h] at stage s."""
-    jj = torch.arange(SCHED_VALS)
-    r = 1 << lr
-    y = y.clone()
-    for s in range(lr):
-        half = r >> (s + 1)
-        lo = jj[(jj & half) == 0]
-        hi = lo + half
-        h = (lo & (r - 1)) >> (lr - s)
-        idx = (nch << (st + s)) + (c << (st + s)) + (blk[:, lo] << s) + h
-        u, v = y[..., lo], mont_mul32(y[..., hi], rp[:, idx], q, qi)
-        y[..., lo], y[..., hi] = addmod32(u, v, q), submod32(u, v, q)
-    return y
-
+# K1 runs the inverse NTT of a row, K2 and K3 the forward NTT, as NCH chunk
+# blocks of one thread-block cluster (csrc/common.cuh::intt_cluster and
+# ::ntt_fwd_cluster). The functions below are those schedules on int64
+# tensors, with the same index formulas (kernels/common.py::sched_*), so
+# that their index math is held to `_gs_stages` and `_ct_stages` where no
+# card is.
 
 def ntt_fwd_sched(x, rp, q, qi, nch: int):
     """x (R, n) residues (int64), rp (R, n) Montgomery twiddles, q, qi
@@ -223,9 +176,58 @@ def ntt_fwd_sched(x, rp, q, qi, nch: int):
             pos, blk = sched_pos(log_c, st, lr, tid, j)
             if i:
                 y = bufs[c][:, sched_phys(pos)]
-            y = _sched_radix(y, rp, qq, qiq, nch, c, st, lr, blk)
+            y = sched_radix(y, rp, qq, qiq, nch, c, st, lr, blk)
             if i < len(passes) - 1:
                 bufs[c][:, sched_phys(pos)] = y
+        out[:, c * c_len + pos] = y
+    return out
+
+
+def intt_sched(x, irp, q, qi, nch: int):
+    """x (R, n) residues (int64), irp (R, n) inverse Montgomery twiddles,
+    q, qi (R, 1) -> (R, n): the GS stages of `_gs_stages` (no n^{-1}),
+    computed as K1 computes them: each of the NCH chunk blocks loads its
+    threads' contiguous sets from x, runs the in-chunk radix passes from
+    the smallest stride up through its padded buffer and, for NCH > 1,
+    leaves its chunk there; after a cluster barrier every thread gathers
+    the NCH values i + s·C of its 16 positions from the peers and runs the
+    cross-chunk stages keeping its own chunk's output."""
+    rows, n = x.shape
+    c_len = n // nch
+    log_c = c_len.bit_length() - 1
+    tid = torch.arange(c_len >> 4)[:, None]
+    j = torch.arange(SCHED_VALS)[None, :]
+    qq, qiq = q[:, :, None], qi[:, :, None]
+    passes = sched_passes(log_c)[::-1]
+    bufs = torch.zeros((nch, rows, sched_phys(c_len - 1) + 1),
+                       dtype=x.dtype)
+    ys = []
+    for c in range(nch):                  # before the first cluster barrier
+        for i, (st, lr) in enumerate(passes):
+            pos, blk = sched_pos(log_c, st, lr, tid, j)
+            y = (x[:, c * c_len + pos] if i == 0
+                 else bufs[c][:, sched_phys(pos)])
+            y = sched_radix(y, irp, qq, qiq, nch, c, st, lr, blk,
+                            inverse=True)
+            if i < len(passes) - 1 or nch > 1:
+                bufs[c][:, sched_phys(pos)] = y
+        ys.append(y)
+    out = torch.empty_like(x)
+    for c in range(nch):                  # between the two cluster barriers
+        y = ys[c]
+        if nch > 1:
+            # chunk stride t = 2^bit: chunks s, s + t under irp[m + g];
+            # block c keeps the sum where bit `bit` of c is 0
+            z = [bufs[s][:, sched_phys(pos)] for s in range(nch)]
+            m, bit = nch // 2, 0
+            while m >= 1:
+                keep_diff = (c >> bit) & 1
+                z = [mont_mul32(submod32(z[2 * g], z[2 * g + 1], qq),
+                                irp[:, m + g][:, None, None], qq, qiq)
+                     if keep_diff else addmod32(z[2 * g], z[2 * g + 1], qq)
+                     for g in range(m)]
+                m, bit = m // 2, bit + 1
+            y = z[0]
         out[:, c * c_len + pos] = y
     return out
 
@@ -241,9 +243,10 @@ def intt_scale_plain(x, row0, n_rows, irp_m, q32, qi32, scale_m):
 
 
 def intt_scale(x: torch.Tensor, row0: int, n_rows: int, irp_m, q32, qi32,
-               scale_m) -> torch.Tensor:
+               scale_m, *, counter=INTT_SCALE) -> torch.Tensor:
     """Rows [row0, row0+n_rows) of x (R, S, N): GS inverse NTT (no n^{-1})
-    then a Montgomery multiply by scale_m[j] -> (R, n_rows, N) int32."""
+    then a Montgomery multiply by scale_m[j] -> (R, n_rows, N) int32.
+    A kernel launch adds one to `counter` (INTT_SCALE or INTT_SCALE_C1)."""
     r, s, n = x.shape
     log_n = _check_n(n)
     if not 0 <= row0 <= row0 + n_rows <= s:
@@ -255,11 +258,12 @@ def intt_scale(x: torch.Tensor, row0: int, n_rows: int, irp_m, q32, qi32,
     if not use_kernel(x, irp_m, q32, qi32, scale_m):
         return intt_scale_plain(x, row0, n_rows, irp_m, q32, qi32, scale_m)
     out = torch.empty((r, n_rows, n), dtype=I32, device=x.device)
+    _check_cluster_operands(log_n, x, out)
     fn = build.bind(build.library("keyswitch.cu"), "rt_intt_scale", 6, 5)
     build.launch(fn, x.data_ptr(), out.data_ptr(), irp_m.data_ptr(),
                  q32.data_ptr(), qi32.data_ptr(), scale_m.data_ptr(),
                  r, s, row0, n_rows, log_n)
-    INTT_SCALE.launches += 1
+    counter.launches += 1
     return out
 
 
@@ -365,26 +369,18 @@ def moddown(g: torch.Tensor, vp, wpq_m, rp_m, q32, qi32,
 
 
 def launch_info(name: str, n: int, *dims: int) -> Dict[str, int]:
-    """The launch K2 (`name` "bconv_ntt_mulacc", dims B, l, T, D, alpha)
-    or K3 ("moddown", dims 2B, l, T, n_p) makes at ring degree n on the
-    current card, without running it: grid, cluster size, threads,
-    dynamic shared memory, cudaOccupancyMaxActiveClusters (blocks per SM
-    times SMs where there is no cluster), registers and local memory per
-    thread."""
-    entry = {"bconv_ntt_mulacc": ("rt_bconv_ntt_mulacc_info", 5),
+    """The launch K1 (`name` "intt_scale", dims R, S, n_rows), K2
+    ("bconv_ntt_mulacc", dims B, l, T, D, alpha) or K3 ("moddown", dims
+    2B, l, T, n_p) makes at ring degree n on the current card, without
+    running it: grid, cluster size, threads, dynamic shared memory,
+    cudaOccupancyMaxActiveClusters (blocks per SM times SMs where there
+    is no cluster), registers and local memory per thread."""
+    entry = {"intt_scale": ("rt_intt_scale_info", 3),
+             "bconv_ntt_mulacc": ("rt_bconv_ntt_mulacc_info", 5),
              "moddown": ("rt_moddown_info", 4)}[name]
     if len(dims) != entry[1]:
         raise ValueError(f"{name}: {entry[1]} dims, got {len(dims)}")
-    fn = getattr(build.library("keyswitch.cu"), entry[0])
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * (entry[1] + 1)
-    fn.restype = ctypes.c_int
-    info = (ctypes.c_int * 9)()
-    err = fn(ctypes.addressof(info), *dims, _check_n(n))
-    if err != 0:
-        raise RuntimeError(f"{entry[0]}: CUDA error {err}")
-    keys = ("grid_x", "grid_y", "grid_z", "cluster", "threads", "smem_bytes",
-            "max_active_clusters", "registers", "local_bytes")
-    return dict(zip(keys, info))
+    return build.launch_info("keyswitch.cu", entry[0], *dims, _check_n(n))
 
 
 # ---------------------------------------------------------------------------
@@ -529,24 +525,43 @@ class FusedKeySwitch:
 
     # -- pipeline ------------------------------------------------------------
 
+    def steps(self, d2: torch.Tensor, level: int, ksk_m: torch.Tensor
+              ) -> Tuple[Tuple[str, Callable[[Dict], torch.Tensor]], ...]:
+        """The steps of `apply` in the order it runs them, as (name, fn)
+        pairs: fn takes the results of the steps before it, by name, and
+        returns its own. Two device casts and the four kernel launches
+        (K1, K2, K1 on the special limbs, K3)."""
+        t = self._tables(level)
+        b = d2.shape[0]
+        l = level + 1
+        n = self.ctx.n
+        return (
+            ("cast in", lambda r: d2.to(I32).contiguous()),
+            ("K1", lambda r: intt_scale(r["cast in"], 0, l, t.q_irp_m,
+                                        t.q_q32, t.q_qi32, t.q_scale_m)),
+            # both accumulators as (2B, l + n_p, N)
+            ("K2", lambda r: bconv_ntt_mulacc(
+                r["K1"], t.w_m, t.rp_m, t.t_q32, t.t_qi32, ksk_m,
+                t.alpha).reshape(2 * b, l + t.n_p, n)),
+            ("K1 (C1)", lambda r: intt_scale(
+                r["K2"], l, t.n_p, t.p_irp_m, t.p_q32, t.p_qi32,
+                t.p_scale_m, counter=INTT_SCALE_C1)),
+            ("K3", lambda r: moddown(r["K2"], r["K1 (C1)"], t.wpq_m, t.rp_m,
+                                     t.t_q32, t.t_qi32, t.pinv_m)),
+            ("cast out", lambda r: u32(r["K3"])),
+        )
+
     def apply(self, d2: torch.Tensor, level: int,
               ksk_m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Key-switch d2 (B, level+1, N) int64 NTT-domain to the key in
         ksk_m (from ``ksk_mont``). Returns (e0, e1), each (B, level+1, N)
         int64, bit-identical to core/ops.key_switch per batch row."""
-        t = self._tables(level)
         b = d2.shape[0]
-        l = level + 1
         record_dispatch(self.DISPATCHES_PER_APPLY)
-        v = intt_scale(d2.to(I32).contiguous(), 0, l, t.q_irp_m, t.q_q32,
-                       t.q_qi32, t.q_scale_m)
-        acc = bconv_ntt_mulacc(v, t.w_m, t.rp_m, t.t_q32, t.t_qi32, ksk_m,
-                               t.alpha)
-        g = acc.reshape(2 * b, l + t.n_p, self.ctx.n)   # both components
-        vp = intt_scale(g, l, t.n_p, t.p_irp_m, t.p_q32, t.p_qi32,
-                        t.p_scale_m)
-        out = u32(moddown(g, vp, t.wpq_m, t.rp_m, t.t_q32, t.t_qi32,
-                          t.pinv_m))
+        r: Dict[str, torch.Tensor] = {}
+        for name, fn in self.steps(d2, level, ksk_m):
+            r[name] = fn(r)
+        out = r["cast out"]
         return out[:b], out[b:]
 
 

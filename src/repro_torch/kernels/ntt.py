@@ -4,20 +4,25 @@ version.
 Replaces `repro/kernels/ntt.py::_ntt_col_kernel` (``ntt.py:52``) and
 ``_ntt_row_kernel`` (``ntt.py:59``), launched by ``ntt_four_step_pallas``.
 Source: ``repro_torch/csrc/ntt.cu``; two kernels, ``ntt_col`` (phase 1:
-column NTTs on an (R, block_c) tile) and ``ntt_row`` (phases 2 and 3: the
-fused correction multiply and the row NTTs on a (block_r, C) tile), each
-with its own launch count. The output is in kernel order
-(`ref.FourStepTables`).
+the column NTTs, each run by R / 16 threads holding its values in
+registers, 8 adjacent columns a block up to R = 2048, fewer above) and
+``ntt_row`` (phases 2 and 3: the fused correction multiply and the row
+NTTs on a (block_r, C) tile), each with its own launch count. The output
+is in kernel order (`ref.FourStepTables`).
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (addmod32, as_i32, check, mont_mul32,
-                                        qinv_neg32, register_kernel,
-                                        submod32, u32, use_kernel)
+from repro_torch.kernels.common import (SCHED_VALS, addmod32, as_i32, check,
+                                        mont_mul32, qinv_neg32,
+                                        register_kernel, sched_passes,
+                                        sched_pos, sched_radix, submod32,
+                                        u32, use_kernel)
 from repro_torch.kernels.ref import FourStepTables
 
 SRC = "src/repro_torch/csrc/ntt.cu"
@@ -25,6 +30,9 @@ NTT_COL = register_kernel("ntt_col", SRC, "src/repro/kernels/ntt.py:52")
 NTT_ROW = register_kernel("ntt_row", SRC, "src/repro/kernels/ntt.py:59")
 
 SMEM_BYTES = 232448          # shared memory a block may use on Hopper
+COL_BLOCK = 8                # adjacent columns a block of ntt_col takes
+MAX_THREADS = 1024           # threads of a block
+MAX_COL_LOG_R = 14           # R / 16 threads a column: 1024 at most
 I32 = torch.int32
 
 
@@ -70,6 +78,55 @@ def ntt_col_plain(a, kt: FourStepKernelTables):
                             qi).to(I32)
 
 
+def col_block(log_r: int, c: int) -> int:
+    """Columns a block of ntt_col takes (csrc/ntt.cu ``col_block``):
+    `COL_BLOCK`, fewer when C is smaller or when R / 16 threads a column
+    would pass `MAX_THREADS` (R > 2048)."""
+    bc = min(COL_BLOCK, c)
+    return min(bc, MAX_THREADS >> (log_r - 4)) if log_r > 4 else bc
+
+
+def col_word(row, col, bc: int):
+    """Word of (row, column) in ntt_col's exchange buffer (csrc/ntt.cu
+    ``col_word``): columns innermost, one pad row after every 16 rows."""
+    return (row + (row >> 4)) * bc + col
+
+
+def ntt_col_sched(a, kt: FourStepKernelTables):
+    """`ntt_col` computed as its threads compute it, on int64 tensors with
+    the kernel's index formulas: a column of R <= 16 values is one
+    thread's single radix pass; above that, thread tid of a column holds
+    the 16 values `common.sched_pos` gives it in each radix pass of the
+    column's R points, and the passes exchange values through each block's
+    buffer of `col_block` columns laid out by `col_word`."""
+    tabs = kt.tabs
+    r, c = tabs.r, tabs.c
+    log_r = r.bit_length() - 1
+    q, qi = u32(kt.q32), u32(kt.qinv32)
+    rp = u32(kt.rp_col_m)[None, :]
+    x = u32(a.reshape(r, c).T)           # (C, R): one column a row
+    if log_r < 5:
+        y = sched_radix(x[:, None, :], rp, q, qi, 1, 0, 0, log_r,
+                        torch.zeros((1, r), dtype=torch.int64))
+        return y[:, 0, :].T.contiguous().to(I32)
+    bc = col_block(log_r, c)
+    col = torch.arange(c)[:, None, None]
+    tid = torch.arange(r >> 4)[:, None]
+    j = torch.arange(SCHED_VALS)[None, :]
+    tile = torch.zeros((c // bc, (r + r // 16) * bc), dtype=torch.int64)
+    passes = sched_passes(log_r)
+    for i, (st, lr) in enumerate(passes):
+        pos, blk = sched_pos(log_r, st, lr, tid, j)
+        word = col_word(pos, col % bc, bc)
+        y = x[:, pos] if i == 0 else tile[col // bc, word]
+        y = sched_radix(y, rp, q, qi, 1, 0, st, lr, blk)
+        if i < len(passes) - 1:
+            tile[col // bc, word] = y
+    out = torch.empty_like(x)
+    out[:, pos] = y
+    return out.T.contiguous().to(I32)
+
+
 def ntt_row_plain(y, kt: FourStepKernelTables):
     """Plain version of `ntt_row` (same arguments and result)."""
     q, qi = u32(kt.q32), u32(kt.qinv32)
@@ -103,20 +160,35 @@ def _fits(tile: int) -> None:
 def ntt_col(a: torch.Tensor, kt: FourStepKernelTables,
             block_c: int) -> torch.Tensor:
     """Phase 1: a (N,) int64 viewed as (R, C) -> (R, C) int32, each column
-    through its R-point NTT; one block per (R, block_c) tile."""
+    through its R-point NTT. `block_c`, the reference's column tile, must
+    divide C as there; the kernel's tiling on Hopper is its own (R / 16
+    threads a column, `col_block` columns a block; see `ntt_col_sched`)."""
     r, c = kt.tabs.r, kt.tabs.c
-    block_c = _block(kt, block_c, c)
+    _block(kt, block_c, c)
     check(a, "a", torch.int64, (r * c,))
     if not use_kernel(a, kt.t2_m):
         return ntt_col_plain(a, kt)
-    _fits(r * block_c)
+    log_r = r.bit_length() - 1
+    if log_r > MAX_COL_LOG_R:
+        raise ValueError(f"ntt_col: columns of R = {r} points; the kernel "
+                         f"takes R <= {1 << MAX_COL_LOG_R}")
     y = torch.empty((r, c), dtype=I32, device=a.device)
-    fn = build.bind(build.library("ntt.cu"), "rt_ntt_col", 5, 3)
+    fn = build.bind(build.library("ntt.cu"), "rt_ntt_col", 5, 2)
     build.launch(fn, a.data_ptr(), y.data_ptr(), kt.rp_col_m.data_ptr(),
-                 kt.q32.data_ptr(), kt.qinv32.data_ptr(), r.bit_length() - 1,
-                 c, block_c)
+                 kt.q32.data_ptr(), kt.qinv32.data_ptr(), log_r, c)
     NTT_COL.launches += 1
     return y
+
+
+def launch_info(log_r: int, c: int) -> Dict[str, int]:
+    """The launch `ntt_col` makes for (R, C) = (2^log_r, c) on the
+    current card, read from the built library without running it:
+    `build.LAUNCH_KEYS` (cluster 1; max_active_clusters is blocks per SM
+    times SMs)."""
+    if not 0 <= log_r <= MAX_COL_LOG_R:
+        raise ValueError(f"ntt_col: R = 2^{log_r} outside 1 to "
+                         f"{1 << MAX_COL_LOG_R}")
+    return build.launch_info("ntt.cu", "rt_ntt_col_info", log_r, c)
 
 
 def ntt_row(y: torch.Tensor, kt: FourStepKernelTables,

@@ -8,12 +8,15 @@ the card with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Covers every chunking of the NTT kernels (N = 2^10: one chunk in shared
-memory; 2^15: a cluster of two; 2^16: of four), K2 and K3 at batch 8
-with the 32-bit prime among the special primes, ragged tail digits, a
-ragged K4 row length, and one launch count per wrapper call; K5
-(mulacc), K6 (bconv, eager and lazy) and K7 (ntt_col + ntt_row) at
-ragged N, at the 32-bit prime 3221225473, with K7's block-divisibility
-error, and the staged keyswitch against the library route.
+memory; 2^15: a cluster of two; 2^16: of four), K1 at both launch shapes
+of the serve path (paper parameters, level 20, B = 8) and its launch
+shape, K2 and K3 at batch 8 with the 32-bit prime among the special
+primes, ragged tail digits, a ragged K4 row length, and one launch count
+per wrapper call; K5 (mulacc), K6 (bconv, eager and lazy) and K7
+(ntt_col + ntt_row) at ragged N, at the 32-bit prime 3221225473, with
+K7's block-divisibility error, ntt_col at R = 16 to 16384 (every kind
+of its kernel) with every block_c the reference accepts and its launch,
+and the staged keyswitch against the library route.
 Imports nothing of JAX, so it runs where only torch is installed.
 """
 import numpy as np
@@ -28,6 +31,7 @@ from repro_torch.core.encryptor import CkksEncryptor  # noqa: E402
 from repro_torch.core.params import CkksParams  # noqa: E402
 from repro_torch.core.params import find_2nth_root  # noqa: E402
 from repro_torch.core.params import find_ntt_primes  # noqa: E402
+from repro_torch.core.params import paper_params_bootstrap  # noqa: E402
 from repro_torch.kernels import bconv as bc  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels import keyswitch as ks  # noqa: E402
@@ -133,6 +137,83 @@ def test_cluster_kernels_full_batch_32bit_special_prime(cuda):
         info = ks.launch_info(name, ctx.n, *dims)
         assert info["cluster"] == 4 and info["threads"] == 1024, info
         assert info["max_active_clusters"] > 0, info
+
+
+def _residues(primes, lead, n, seed, device):
+    """Random residues (lead..., len(primes), n) int32, row i below
+    primes[i]."""
+    rng = np.random.default_rng(seed)
+    rows = [rng.integers(0, p, size=(*lead, n)) for p in primes]
+    return torch.from_numpy(np.stack(rows, len(lead)).astype(
+        np.uint32).view(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("log_n", [10, 15, 16])
+def test_intt_scale_both_launch_shapes(cuda, log_n):
+    """K1 at the two launches of a keyswitch at B = 8: stage A over every
+    Q limb (row0 = 0) and C1 over the special limbs of both accumulators
+    (row0 = l), each counted on its own counter; at logN = 16 with the
+    paper parameters' level 20 (3221225473 among the special primes)."""
+    if log_n == 16:
+        ctx, level = CkksContext(paper_params_bootstrap(), cuda), 20
+        assert Q32 in ctx.p_primes
+    else:
+        ctx, level = _stack(log_n, cuda)[0], 5
+    t = ks.FusedKeySwitch(ctx)._tables(level)
+    l, n_p = level + 1, t.n_p
+    q_primes = ctx.primes[:l]
+    p_primes = ctx.p_primes
+    d2 = _residues(q_primes, (8,), ctx.n, log_n, cuda)
+    g = _residues(q_primes + list(p_primes), (16,), ctx.n, log_n + 1, cuda)
+    before = (ks.INTT_SCALE.launches, ks.INTT_SCALE_C1.launches)
+    a1 = (d2, 0, l, t.q_irp_m, t.q_q32, t.q_qi32, t.q_scale_m)
+    assert torch.equal(ks.intt_scale(*a1), ks.intt_scale_plain(*a1))
+    a1c = (g, l, n_p, t.p_irp_m, t.p_q32, t.p_qi32, t.p_scale_m)
+    assert torch.equal(ks.intt_scale(*a1c, counter=ks.INTT_SCALE_C1),
+                       ks.intt_scale_plain(*a1c))
+    assert (ks.INTT_SCALE.launches, ks.INTT_SCALE_C1.launches) == (
+        before[0] + 1, before[1] + 1)
+    nch = {10: 1, 15: 2, 16: 4}[log_n]
+    for dims in ((8, l, l), (16, l + n_p, n_p)):
+        info = ks.launch_info("intt_scale", ctx.n, *dims)
+        assert (info["grid_x"], info["grid_y"], info["grid_z"]) == (
+            nch, dims[2], dims[0]), info
+        assert info["cluster"] == nch, info
+        assert info["threads"] == ctx.n // nch // 16, info
+        assert info["local_bytes"] <= 16, info
+        assert info["max_active_clusters"] > 0, info
+
+
+@pytest.mark.parametrize("q", [None, Q32])
+@pytest.mark.parametrize("log_n,log_r", [
+    (8, 4), (10, 5), (12, 6), (16, 8), (12, 9), (14, 11), (15, 12),
+    (16, 14)])
+def test_ntt_col_equal_plain(cuda, q, log_n, log_r):
+    """Every kind of column kernel: R = 16 (one thread a column), 32, 64
+    and 256 (one exchange), 512 and 2048 (two; 69632 B of shared memory
+    at R = 2048), 4096 (4 columns a block) and 16384 (three exchanges,
+    one column of 1024 threads a block), with every block_c the
+    reference accepts (it must divide C; the kernel's tiling does not
+    depend on it), and the launch the library reports for it."""
+    q = q or find_ntt_primes(30, log_n, 1)[0].value
+    kern = kops.NttKernel(q, find_2nth_root(q, 2 << log_n), log_n, log_r)
+    kt = kern.tables(cuda)
+    c = 1 << (log_n - log_r)
+    a = torch.from_numpy(np.random.default_rng(log_r).integers(
+        0, q, 1 << log_n)).to(cuda)
+    want = kntt.ntt_col_plain(a, kt)
+    for block_c in (1, 8, c, 128):
+        before = kntt.NTT_COL.launches
+        assert torch.equal(kntt.ntt_col(a, kt, block_c), want), block_c
+        assert kntt.NTT_COL.launches == before + 1
+    with pytest.raises(ValueError, match="must divide"):
+        kntt.ntt_col(a, kt, 3)
+    info = kntt.launch_info(log_r, c)
+    bc = kntt.col_block(log_r, c)
+    assert (info["grid_x"], info["grid_y"], info["cluster"]) == (
+        c // bc, 1, 1), info
+    assert info["threads"] == bc * max(1, (1 << log_r) // 16), info
+    assert info["local_bytes"] <= 16 and info["max_active_clusters"] > 0
 
 
 def test_modmul_ragged_and_counted(cuda):

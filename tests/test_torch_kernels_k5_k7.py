@@ -8,6 +8,11 @@ on the CPU through their plain versions, with the JAX reference.
   N = 256 and ragged.
 * K7 ``NttKernel`` against the reference's at log_n 8 and 10, log_r
   log_n // 2 and 3; the ValueError on a block that does not divide.
+* K7's column kernel as its threads compute it (``ntt.ntt_col_sched``:
+  R / 16 threads a column in radix passes, 8 columns a block exchanging
+  through ``ntt.col_word``) against ``ntt_col_plain`` from R = 1 to 16384,
+  at a 30-bit prime and at 3221225473, and against the reference's
+  four-step NTT; its exchange buffer free of bank conflicts at R = 256.
 * K4, K5, K6 (both schedules) and K7 at the 32-bit prime 3221225473,
   where the reference's u32 sums wrap (fault F2): against the port's
   exact oracles (`repro_torch.kernels.ref`) and Python-int arithmetic.
@@ -28,6 +33,8 @@ from repro.core.params import find_2nth_root  # noqa: E402
 from repro.core.params import find_ntt_primes  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core import modarith as tma  # noqa: E402
+from repro_torch.kernels import ntt as tntt  # noqa: E402
+from repro_torch.kernels.common import sched_passes, sched_pos  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -163,3 +170,61 @@ def test_modarith_strategies_match_reference():
     np.testing.assert_array_equal(
         tma.mulhi64(_t(x), _t(y)).numpy(),
         _np(jma.mulhi64(_j(x), _j(y))))
+
+
+@pytest.mark.parametrize("q", [None, Q32])
+@pytest.mark.parametrize("log_n,log_r", [
+    (10, 0), (8, 3), (8, 4), (10, 5), (12, 6), (10, 8), (16, 8), (12, 9),
+    (14, 11), (15, 12), (16, 14)])
+def test_ntt_col_schedule_equals_plain(log_n, log_r, q):
+    """Column-kernel shapes of every kind the C entry instantiates: one
+    thread a column (R <= 16), one exchange (R = 32 to 256), two (R = 512
+    to 4096), three (R = 8192, 16384), fewer than 8 columns a block
+    because C is small (R = 256, C = 4) or R is large (R = 4096: 4
+    columns of 256 threads; R = 16384: 1 column of 1024)."""
+    q = q or find_ntt_primes(30, log_n, 1)[0].value
+    psi = find_2nth_root(q, 2 << log_n)
+    kern = tops.NttKernel(q, psi, log_n, log_r)
+    kt = kern.tables("cpu")
+    a = _t(_rows([q], 1 << log_n, log_n + log_r)[0])
+    got = tntt.ntt_col_sched(a, kt)
+    assert torch.equal(got, tntt.ntt_col_plain(a, kt))
+    if q != Q32 and log_n <= 10 and log_r:   # the reference needs R > 1
+        want = _np(jops.NttKernel(q, psi, log_n, log_r)(_j(a.numpy()),
+                                                        interpret=True))
+        np.testing.assert_array_equal(
+            tntt.ntt_row_plain(got, kt).numpy(), want)
+
+
+@pytest.mark.parametrize("log_c", [0, 2, 3, 8])
+def test_ntt_col_block_fits_a_block(log_c):
+    """For every R the C entry takes, `col_block` divides C, takes 8
+    columns where C and R allow it, and keeps a block within 1024
+    threads and the shared memory a block may use."""
+    c = 1 << log_c
+    for log_r in range(tntt.MAX_COL_LOG_R + 1):
+        r = 1 << log_r
+        bc = tntt.col_block(log_r, c)
+        threads = bc * max(1, r // 16)
+        assert c % bc == 0 and threads <= tntt.MAX_THREADS, (log_r, bc)
+        assert 4 * bc * (r + r // 16) <= tntt.SMEM_BYTES, (log_r, bc)
+        assert bc == min(8, c, 16384 // r), (log_r, bc)
+
+
+def test_ntt_col_exchange_without_bank_conflicts_at_r256():
+    """At R = C = 256 a block's 128 threads (thread t: column t % 8,
+    column thread t // 8) store the first pass's rows and load the second
+    pass's through `col_word`: every word of the buffer once, and no
+    access of a warp hits a bank twice."""
+    log_r, bc = 8, tntt.COL_BLOCK
+    t = torch.arange(bc << (log_r - 4))
+    col, tid = t % bc, t // bc
+    j = torch.arange(16)[None, :]
+    for st, lr in sched_passes(log_r):
+        pos, _ = sched_pos(log_r, st, lr, tid[:, None], j)
+        words = tntt.col_word(pos, col[:, None], bc)
+        assert len(set(words.flatten().tolist())) == (bc << log_r)
+        assert int(words.max()) < (256 + 16) * bc
+        for v in range(16):
+            for warp in (words[:, v] % 32).reshape(-1, 32):
+                assert len(set(warp.tolist())) == 32, (st, v)
