@@ -13,7 +13,9 @@ non-zero:
    (paper_params_bootstrap, level 20, batch 8, plus level 13 with a
    ragged tail digit); K5 mulacc over the T = 27 target rows, K6 bconv
    (eager and lazy) at S = 6 -> D = 21 and S = 3 -> D = 24 with the
-   32-bit prime among the destinations, K5 and K6 also at a ragged N;
+   32-bit prime among the destinations and at fig14's S = 6 -> D = 4,
+   N = 1024, each timed, with its launch line; K5 and K6 also at a
+   ragged N;
    K7 ntt_col + ntt_row at N = 2^16, R = C = 256, at a 30-bit prime and
    at 3221225473. torch.equal, then the device time of kernel and plain
    version (20 back-to-back calls between CUDA events, a sleep kernel
@@ -21,10 +23,10 @@ non-zero:
    enqueue one call, the kernel's bound, and a one-call library
    yardstick where one exists; K1 at both of its launch shapes (stage A
    over the Q limbs, C1 over the special limbs), each its own row; for
-   K1-K3 (cluster kernels) and ntt_col also the launch's grid, cluster
-   size, threads, shared memory, cudaOccupancyMaxActiveClusters (blocks
-   resident at once for ntt_col), registers and local memory, as the
-   built library reports them;
+   K1-K3 (cluster kernels), ntt_col and K6 also the launch's grid,
+   cluster size, threads, shared memory, cudaOccupancyMaxActiveClusters
+   (blocks resident at once for ntt_col and K6), registers and local
+   memory, as the built library reports them;
 3. keyswitch — the 4-launch fused keyswitch against the library
    core/ops.key_switch, relin and Galois key, bit-equal, 4 dispatches
    per apply, its time per call at B = 8, and its device time split
@@ -75,6 +77,7 @@ REPS = 20
 # enqueues timed launches (H100 SXM boost clock, 1.98 GHz)
 SLEEP_CYCLES_PER_S = 1.98e9
 RAGGED = 36         # N - 36 columns: not a multiple of any block
+FIG14_BCONV_N = 1024  # fig14's BConv columns (benchmarks/fig14_kernels.py)
 Q32 = 3221225473    # paper_params_bootstrap's 32-bit special prime
 
 # kernels each driven path must launch, and the path whose count is a
@@ -377,30 +380,68 @@ def main() -> int:
                 lambda: torch.remainder(a5 * b5 + c5, q64t[:, None]))
 
         digits = params.digit_indices(LEVEL)
-        bconv_cases = ((digits[-1], n), (digits[0], n - RAGGED),
-                       (digits[0], n))
-        for dig, cols in bconv_cases:
+        k6 = {}         # (S, D, N) -> K6's operands at that shape
+        for dig, cols in ((digits[-1], n - RAGGED), (digits[-1], n),
+                          (digits[0], n - RAGGED), (digits[0], n)):
             other = [i for i in target if i not in dig]
-            dst = [ctx.primes[i] for i in other]
-            p64, p32, pinv, rm = kops._mont_consts(tuple(dst), str(dev))
-            w6 = ma.mulmod(ctx.bconv_tables(dig, other).w.T % p64[:, None],
-                           rm[:, None], p64[:, None]).to(
-                               torch.int32).contiguous()
-            v6 = rand_rows([ctx.primes[i] for i in dig], cols)
-            errs = {}
+            tabs = ctx.bconv_tables(dig, other)
+            k6[(len(dig), len(other), cols)] = (
+                rand_rows([ctx.primes[i] for i in dig], cols), tabs.w_mont,
+                tabs.dst_q32, tabs.dst_qinv32)
+        # fig14's shape: 6 sources of 28 bits -> 4 destinations of 30 bits
+        src14 = [m.value for m in find_ntt_primes(28, 10, 6)]
+        dst14 = [m.value for m in find_ntt_primes(30, 10, 4)]
+        p64, p32, pinv, rm = kops._mont_consts(tuple(dst14), str(dev))
+        w14 = torch.from_numpy(rng.integers(0, 1 << 32, size=(4, 6))).to(dev)
+        k6[(6, 4, FIG14_BCONV_N)] = (
+            rand_rows(src14, FIG14_BCONV_N),
+            ma.mulmod(w14 % p64[:, None], rm[:, None], p64[:, None]).to(
+                torch.int32), p32, pinv)
+        errs = {False: 0, True: 0}
+        for (s6, d6, cols), a6 in k6.items():
             for lazy in (False, True):
-                a6 = (v6, w6, p32, pinv, lazy)
-                _, errs[lazy] = compare(
-                    f"bconv(lazy={lazy})@S={len(dig)},D={len(dst)},"
-                    f"N={cols}", lambda: bc.bconv_mont(*a6),
-                    lambda: bc.bconv_plain(*a6))
-        s6, d6 = len(dig), len(dst)
+                _, err = compare(
+                    f"bconv(lazy={lazy})@S={s6},D={d6},N={cols}",
+                    lambda: bc.bconv_mont(*a6, lazy=lazy),
+                    lambda: bc.bconv_plain(*a6, lazy))
+                errs[lazy] = max(errs[lazy], err)
+            if cols == n - RAGGED:
+                continue
+            info = bc.launch_info(s6, d6, cols)
+            if (s6, d6) == (6, 21):
+                launch["bconv"] = launch["bconv_lazy"] = info
+            blocks = info["grid_x"] * info["grid_y"]
+            print(f"  bconv launch (S={s6}, D={d6}, N={cols}): grid "
+                  f"({info['grid_x']}, {info['grid_y']}) of "
+                  f"{info['threads']} threads, {info['smem_bytes']} B "
+                  f"dynamic shared memory, {info['max_active_clusters']} "
+                  f"blocks resident at once "
+                  f"({blocks / info['max_active_clusters']:.2f} waves), "
+                  f"{info['registers']} registers, {info['local_bytes']} B "
+                  f"local memory a thread", flush=True)
+
+        def k6_cost(s6, d6, cols):
+            return (8 * (s6 + d6) * cols + 4 * d6 * s6 + 8 * d6,
+                    s6 * d6 * cols * (MONT + ADD))
+
         for lazy, name in ((False, "bconv"), (True, "bconv_lazy")):
-            a6 = (v6, w6, p32, pinv, lazy)
-            measure(name, errs[lazy], lambda: bc.bconv_mont(*a6),
-                    lambda: bc.bconv_plain(*a6),
-                    8 * (s6 + d6) * n + 4 * d6 * s6 + 8 * d6,
-                    s6 * d6 * n * (MONT + ADD))
+            a6 = k6[(6, 21, n)]
+            measure(name, errs[lazy], lambda: bc.bconv_mont(*a6, lazy=lazy),
+                    lambda: bc.bconv_plain(*a6, lazy), *k6_cost(6, 21, n))
+            rows[name]["shapes"] = {}
+            for key in ((3, 24, n), (6, 4, FIG14_BCONV_N)):
+                a6 = k6[key]
+                ms = device_ms(torch, lambda: bc.bconv_mont(*a6, lazy=lazy))
+                b_ms, b_by = bound(*k6_cost(*key))
+                shape = rows[name]["shapes"][
+                    "S={},D={},N={}".format(*key)] = {
+                    "ms": ms[0], "host_ms": ms[1], "plain_ms": device_ms(
+                        torch, lambda: bc.bconv_plain(*a6, lazy))[0],
+                    "bound_ms": b_ms, "bound_by": b_by}
+                print(f"  {name:<17} {ms[0]:.4f} ms at S={key[0]} -> "
+                      f"D={key[1]}, N={key[2]} (plain "
+                      f"{shape['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by "
+                      f"{b_by}; host {ms[1]:.4f} ms a call)", flush=True)
 
         log_r = ctx.log_n // 2
         r7, c7 = 1 << log_r, n >> log_r
@@ -431,10 +472,10 @@ def main() -> int:
                 lambda: kntt.ntt_row_plain(y7, kt),
                 4 * n + 4 * n + 4 * c7 + 8 * n + 8,
                 n * MONT + r7 * ntt_ops(c7))
-        print(f"K5 (T={t_n}), K6 (S=6->D=21, S=3->D=24, eager and lazy) "
-              f"and K7 (N={n}, R=C={r7}) torch.equal to their plain "
-              f"versions, ragged N={n - RAGGED} and q={Q32} included",
-              flush=True)
+        print(f"K5 (T={t_n}), K6 (S=6->D=21, S=3->D=24, S=6->D=4 at "
+              f"N={FIG14_BCONV_N}, eager and lazy) and K7 (N={n}, "
+              f"R=C={r7}) torch.equal to their plain versions, ragged "
+              f"N={n - RAGGED} and q={Q32} included", flush=True)
 
     def split_keyswitch(d2, level, km, whole_ms):
         """Device time of each step of FusedKeySwitch.apply, on the

@@ -13,14 +13,19 @@ import numpy as np
 import torch
 
 from repro_torch.core import modarith as ma
+from repro_torch.kernels.common import as_i32, qinv_neg32, to_mont_int
 
 
 class BConvTables(NamedTuple):
-    """Host-precomputed constants for one (src basis -> dst basis) pair."""
+    """Host-precomputed constants for one (src basis -> dst basis) pair,
+    and K6's operands (u32 bit patterns in int32), built with them once."""
     qhat_inv: torch.Tensor   # (S,)  [qhat_j^{-1}]_{q_j}
     w: torch.Tensor          # (S, D) [qhat_j]_{p_i}
     src_q: torch.Tensor      # (S,)
     dst_q: torch.Tensor      # (D,)
+    w_mont: torch.Tensor     # (D, S) [qhat_j]_{p_i} * 2^32 mod p_i
+    dst_q32: torch.Tensor    # (D,)  p_i
+    dst_qinv32: torch.Tensor  # (D,) -p_i^{-1} mod 2^32
 
 
 def make_bconv_tables(src_primes: Sequence[int], dst_primes: Sequence[int],
@@ -36,9 +41,16 @@ def make_bconv_tables(src_primes: Sequence[int], dst_primes: Sequence[int],
 
     def t(x):
         return torch.tensor(x, dtype=torch.int64, device=device)
+
+    w_mont = [[to_mont_int(w[j][i], p) for j in range(len(src))]
+              for i, p in enumerate(dst)]
     return BConvTables(qhat_inv=t(qhat_inv), w=t(w).reshape(len(src),
                                                             len(dst)),
-                       src_q=t(src), dst_q=t(dst))
+                       src_q=t(src), dst_q=t(dst),
+                       w_mont=as_i32(w_mont, device),
+                       dst_q32=as_i32(dst, device),
+                       dst_qinv32=as_i32([qinv_neg32(p) for p in dst],
+                                         device))
 
 
 def bconv(a: torch.Tensor, t: BConvTables) -> torch.Tensor:

@@ -45,6 +45,7 @@ import torch
 from repro_torch.core import modarith as ma
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.bconv import bconv_mont
 from repro_torch.kernels.common import (SCHED_VALS, addmod32, as_i32,
                                         check, mont_mul32, qinv_neg32,
                                         record_dispatch, register_kernel,
@@ -594,7 +595,8 @@ def keyswitch_staged(ctx, d2: torch.Tensor, level: int,
         dig_c = ctx.intt(d2_dig, dig)
         v = kops.modmul(dig_c, tabs.qhat_inv[:, None].expand_as(dig_c),
                         [ctx.primes[i] for i in dig])
-        conv = kops.bconv(v, tabs.w, [ctx.primes[i] for i in other])
+        record_dispatch()                                   # BConv
+        conv = bconv_mont(v, tabs.w_mont, tabs.dst_q32, tabs.dst_qinv32)
         record_dispatch()                                   # NTT
         conv_ntt = ctx.ntt(conv, other)
         record_dispatch()                                   # interleave
@@ -612,7 +614,8 @@ def keyswitch_staged(ctx, d2: torch.Tensor, level: int,
         p_c = ctx.intt(acc[nq:], idx_p)
         v = kops.modmul(p_c, tabs.qhat_inv[:, None].expand_as(p_c),
                         [ctx.primes[i] for i in idx_p])
-        conv = kops.bconv(v, tabs.w, [ctx.primes[i] for i in idx_q])
+        record_dispatch()                                   # BConv
+        conv = bconv_mont(v, tabs.w_mont, tabs.dst_q32, tabs.dst_qinv32)
         record_dispatch()                                   # NTT
         conv_ntt = ctx.ntt(conv, idx_q)
         record_dispatch()                                   # sub + P^{-1}

@@ -14,11 +14,17 @@ shape, K2 and K3 at batch 8 with the 32-bit prime among the special
 primes, ragged tail digits, a ragged K4 row length, and one launch count
 per wrapper call; K5 (mulacc), K6 (bconv, eager and lazy) and K7
 (ntt_col + ntt_row) at ragged N, at the 32-bit prime 3221225473, with
-K7's block-divisibility error, ntt_col at R = 16 to 16384 (every kind
-of its kernel) with every block_c the reference accepts and its launch,
-and the staged keyswitch against the library route.
+K7's block-divisibility error; K6 at every S of its cases (1, 3, 6 and
+the largest instantiated) against D = 4, 21, 24, 27 and N = 65536,
+65500, 1024, 777, 100, an 8-byte aligned source, its launch against
+``bconv_sched`` and its ValueError above the largest S; ntt_col at
+R = 16 to 16384 (every kind of its kernel) with every block_c the
+reference accepts and its launch, and the staged keyswitch against the
+library route.
 Imports nothing of JAX, so it runs where only torch is installed.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -279,6 +285,73 @@ def test_bconv_equal_plain_and_oracle(cuda, lazy, n):
     want = kref.bconv_ref(v, w % p64, p64)
     assert torch.equal(out, want)
     assert torch.equal(kops.bconv(v, w, dst, lazy=not lazy), want)
+
+
+# K6's sources above its destinations, the 32-bit prime first
+BCONV_SRC = [Q32, 4293918721, 2013265921, 2113929217, 2130706433,
+             2146959361, 4293230593]
+
+
+@functools.lru_cache(maxsize=None)
+def _bconv_dst(d):
+    """d destination primes: d - 2 of 30 bits, then two above 2^31 (the
+    kernel's other arithmetic path), the 32-bit special prime last."""
+    return tuple(m.value for m in find_ntt_primes(30, 10, d - 2)) + (
+        4293918721, Q32)
+
+
+@pytest.mark.parametrize("n", [65536, 65500, 1024, 777, 100])
+@pytest.mark.parametrize("d", [4, 21, 24, 27])
+@pytest.mark.parametrize("s", [1, 3, 6, bc.MAX_S])
+def test_bconv_shapes_equal_plain_and_oracle(cuda, s, d, n):
+    src, dst = BCONV_SRC[:s], list(_bconv_dst(d))
+    rng = np.random.default_rng(1000 * s + d + n)
+    v = _rows(src, n, rng, cuda)
+    w = torch.from_numpy(np.stack([rng.integers(0, 1 << 32, d)
+                                   for _ in src])).to(cuda)
+    p64, p32, pinv, rm = kops._mont_consts(tuple(dst), str(cuda))
+    w_mont = ma.mulmod(w.T % p64[:, None], rm[:, None],
+                       p64[:, None]).to(torch.int32).contiguous()
+    want = kref.bconv_ref(v, w % p64, p64)
+    # the same rows 8 bytes past a 16-byte boundary: the 8-byte path
+    shifted = torch.empty(s * n + 1, dtype=torch.int64, device=cuda)
+    v8 = shifted[1:].view(s, n)
+    v8.copy_(v)
+    for lazy, counter in ((False, bc.BCONV), (True, bc.BCONV_LAZY)):
+        before = counter.launches
+        out = bc.bconv_mont(v, w_mont, p32, pinv, lazy=lazy)
+        assert counter.launches == before + 1
+        assert torch.equal(out, bc.bconv_plain(v, w_mont, p32, pinv, lazy))
+        assert torch.equal(out, want)
+        assert torch.equal(bc.bconv_mont(v8, w_mont, p32, pinv, lazy=lazy),
+                           want)
+        assert counter.launches == before + 2
+
+
+@pytest.mark.parametrize("s,d,n", [(6, 21, 65536), (3, 24, 65536),
+                                   (6, 4, 1024), (7, 27, 777), (1, 4, 100)])
+def test_bconv_launch_matches_sched(cuda, s, d, n):
+    sch = bc.bconv_sched(s, d, n)
+    for lazy in (False, True):
+        info = bc.launch_info(s, d, n, lazy)
+        assert (info["grid_x"], info["grid_y"], info["grid_z"]) == (
+            *sch.grid, 1)
+        assert (info["threads"], info["cluster"]) == (sch.threads, 1)
+        assert info["smem_bytes"] == 4 * bc.GROUP * (s + 2)
+        assert info["local_bytes"] == 0
+
+
+def test_bconv_refuses_s_above_instances(cuda):
+    s, d = bc.MAX_S + 1, 4
+    z = torch.zeros((d, s), dtype=torch.int32, device=cuda)
+    p = torch.full((d,), 5, dtype=torch.int32, device=cuda)
+    before = bc.BCONV.launches
+    with pytest.raises(ValueError, match="instantiated"):
+        bc.bconv_mont(torch.zeros((s, 64), dtype=torch.int64, device=cuda),
+                      z, p, p)
+    with pytest.raises(ValueError, match="instantiated"):
+        bc.launch_info(s, d, 64)
+    assert bc.BCONV.launches == before
 
 
 @pytest.mark.parametrize("q,log_n,log_r", [
