@@ -11,22 +11,24 @@ non-zero:
 2. kernels — each kernel against its plain PyTorch version at its
    path's shapes: K1-K4 as the serve path gives them
    (paper_params_bootstrap, level 20, batch 8, plus level 13 with a
-   ragged tail digit); K5 mulacc over the T = 27 target rows, K6 bconv
-   (eager and lazy) at S = 6 -> D = 21 and S = 3 -> D = 24 with the
-   32-bit prime among the destinations and at fig14's S = 6 -> D = 4,
-   N = 1024, each timed, with its launch line; K5 and K6 also at a
-   ragged N;
+   ragged tail digit); K5 mulacc over the T = 27 target rows and at
+   fig14's T = 14 rows of N = 1024, K6 bconv (eager and lazy) at S = 6 ->
+   D = 21 and S = 3 -> D = 24 with the 32-bit prime among the
+   destinations and at fig14's S = 6 -> D = 4, N = 1024, each timed,
+   with its launch line; K5 and K6 also at a ragged N;
    K7 ntt_col + ntt_row at N = 2^16, R = C = 256, at a 30-bit prime and
-   at 3221225473. torch.equal, then the device time of kernel and plain
-   version (20 back-to-back calls between CUDA events, a sleep kernel
-   holding the device while the host enqueues them), the host's time to
-   enqueue one call, the kernel's bound, and a one-call library
-   yardstick where one exists; K1 at both of its launch shapes (stage A
-   over the Q limbs, C1 over the special limbs), each its own row; for
-   K1-K3 (cluster kernels), ntt_col and K6 also the launch's grid,
-   cluster size, threads, shared memory, cudaOccupancyMaxActiveClusters
-   (blocks resident at once for ntt_col and K6), registers and local
-   memory, as the built library reports them;
+   at 3221225473, and at fig14's N = 2^12, R = C = 64, each timed.
+   torch.equal, then the device time of kernel and plain version (20
+   back-to-back calls between CUDA events, a sleep kernel holding the
+   device while the host enqueues them), the host's time to enqueue one
+   call, the kernel's bound, and a one-call library yardstick where one
+   exists; times at a path's other
+   shapes go under the "shapes" key of the kernel's row; K1 at both of
+   its launch shapes (stage A over the Q limbs, C1 over the special
+   limbs), each its own row; for K1-K3 (cluster kernels), K6 and K7 also
+   the launch's grid, cluster size, threads, shared memory,
+   cudaOccupancyMaxActiveClusters (blocks resident at once for K6 and
+   K7), registers and local memory, as the built library reports them;
 3. keyswitch — the 4-launch fused keyswitch against the library
    core/ops.key_switch, relin and Galois key, bit-equal, 4 dispatches
    per apply, its time per call at B = 8, and its device time split
@@ -78,6 +80,8 @@ REPS = 20
 SLEEP_CYCLES_PER_S = 1.98e9
 RAGGED = 36         # N - 36 columns: not a multiple of any block
 FIG14_BCONV_N = 1024  # fig14's BConv columns (benchmarks/fig14_kernels.py)
+FIG14_NTT_LOG_N = 12  # fig14's four-step NTT: N = 4096, R = C = 64
+FIG14_KEYSWITCH = dict(log_n=10, n_levels=8, dnum=2, log_scale=26)
 Q32 = 3221225473    # paper_params_bootstrap's 32-bit special prime
 
 # kernels each driven path must launch, and the path whose count is a
@@ -175,7 +179,7 @@ def main() -> int:
     from repro_torch.core.encryptor import CkksEncryptor
     from repro_torch.benchmarks import fig14_kernels
     from repro_torch.core.params import (find_2nth_root, find_ntt_primes,
-                                         paper_params_bootstrap)
+                                         paper_params_bootstrap, test_params)
     from repro_torch.kernels import bconv as bc
     from repro_torch.kernels import build, common
     from repro_torch.kernels import keyswitch as ks
@@ -251,6 +255,29 @@ def main() -> int:
                   + (f", library {r['library_ms']:.4f} ms" if lib
                      else "") + f"; host {host_ms:.4f} ms a call)",
                   flush=True)
+
+        def measure_shape(name, key, kern, plain, nb, nops):
+            """A kernel's times at another shape its paths launch it at,
+            under the "shapes" key of its row."""
+            ms, host_ms = device_ms(torch, kern)
+            b_ms, b_by = bound(nb, nops)
+            shape = rows[name].setdefault("shapes", {})[key] = {
+                "ms": ms, "host_ms": host_ms,
+                "plain_ms": device_ms(torch, plain)[0], "bound_ms": b_ms,
+                "bound_by": b_by}
+            print(f"  {name:<17} {ms:.4f} ms at {key} (plain "
+                  f"{shape['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+                  f"{b_by}; host {host_ms:.4f} ms a call)", flush=True)
+
+        def print_launch(name, info, what):
+            blocks = info["grid_x"] * info["grid_y"] * info["grid_z"]
+            print(f"  {name} launch ({what}): grid ({info['grid_x']}, "
+                  f"{info['grid_y']}) of {info['threads']} threads, "
+                  f"{info['smem_bytes']} B dynamic shared memory, "
+                  f"{info['max_active_clusters']} blocks resident at once "
+                  f"({blocks / info['max_active_clusters']:.2f} waves), "
+                  f"{info['registers']} registers, {info['local_bytes']} B "
+                  f"local memory a thread", flush=True)
 
         for level in (LEVEL, LOW_LEVEL):
             t = fks._tables(level)
@@ -378,6 +405,23 @@ def main() -> int:
                 28 * t_n * n + 8 * t_n, t_n * n * (MONT + ADD),
                 # wraps int64 on the 32-bit limb: a time yardstick only
                 lambda: torch.remainder(a5 * b5 + c5, q64t[:, None]))
+        # fig14's K5 launches: the staged keyswitch's target basis at its
+        # parameters (logN = 10, level 8: T = 14 rows of N = 1024)
+        p14 = test_params(**FIG14_KEYSWITCH)
+        t14 = [m.value for m in
+               p14.q_moduli[:p14.n_levels + 1] + p14.p_moduli]
+        n5 = p14.n
+        q64f, q32f, qif, rmf = kops._mont_consts(tuple(t14), str(dev))
+        a5f, b5f, c5f = (rand_rows(t14, n5) for _ in range(3))
+        b5fm = ma.mulmod(b5f, rmf[:, None], q64f[:, None]).to(torch.int32)
+        a5fs = (a5f, b5fm, c5f, q32f, qif)
+        compare(f"mulacc@T={len(t14)},N={n5}", lambda: mm.mulacc_mont(*a5fs),
+                lambda: mm.mulacc_mont_plain(*a5fs))
+        measure_shape("mulacc", f"T={len(t14)},N={n5}",
+                      lambda: mm.mulacc_mont(*a5fs),
+                      lambda: mm.mulacc_mont_plain(*a5fs),
+                      28 * len(t14) * n5 + 8 * len(t14),
+                      len(t14) * n5 * (MONT + ADD))
 
         digits = params.digit_indices(LEVEL)
         k6 = {}         # (S, D, N) -> K6's operands at that shape
@@ -410,15 +454,7 @@ def main() -> int:
             info = bc.launch_info(s6, d6, cols)
             if (s6, d6) == (6, 21):
                 launch["bconv"] = launch["bconv_lazy"] = info
-            blocks = info["grid_x"] * info["grid_y"]
-            print(f"  bconv launch (S={s6}, D={d6}, N={cols}): grid "
-                  f"({info['grid_x']}, {info['grid_y']}) of "
-                  f"{info['threads']} threads, {info['smem_bytes']} B "
-                  f"dynamic shared memory, {info['max_active_clusters']} "
-                  f"blocks resident at once "
-                  f"({blocks / info['max_active_clusters']:.2f} waves), "
-                  f"{info['registers']} registers, {info['local_bytes']} B "
-                  f"local memory a thread", flush=True)
+            print_launch("bconv", info, f"S={s6}, D={d6}, N={cols}")
 
         def k6_cost(s6, d6, cols):
             return (8 * (s6 + d6) * cols + 4 * d6 * s6 + 8 * d6,
@@ -428,54 +464,64 @@ def main() -> int:
             a6 = k6[(6, 21, n)]
             measure(name, errs[lazy], lambda: bc.bconv_mont(*a6, lazy=lazy),
                     lambda: bc.bconv_plain(*a6, lazy), *k6_cost(6, 21, n))
-            rows[name]["shapes"] = {}
             for key in ((3, 24, n), (6, 4, FIG14_BCONV_N)):
                 a6 = k6[key]
-                ms = device_ms(torch, lambda: bc.bconv_mont(*a6, lazy=lazy))
-                b_ms, b_by = bound(*k6_cost(*key))
-                shape = rows[name]["shapes"][
-                    "S={},D={},N={}".format(*key)] = {
-                    "ms": ms[0], "host_ms": ms[1], "plain_ms": device_ms(
-                        torch, lambda: bc.bconv_plain(*a6, lazy))[0],
-                    "bound_ms": b_ms, "bound_by": b_by}
-                print(f"  {name:<17} {ms[0]:.4f} ms at S={key[0]} -> "
-                      f"D={key[1]}, N={key[2]} (plain "
-                      f"{shape['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by "
-                      f"{b_by}; host {ms[1]:.4f} ms a call)", flush=True)
+                measure_shape(name, "S={},D={},N={}".format(*key),
+                              lambda: bc.bconv_mont(*a6, lazy=lazy),
+                              lambda: bc.bconv_plain(*a6, lazy),
+                              *k6_cost(*key))
+
+        def col_cost(n7, r7, c7):
+            return 8 * n7 + 4 * n7 + 4 * r7 + 8, c7 * ntt_ops(r7)
+
+        def row_cost(n7, r7, c7):
+            return 4 * n7 + 4 * n7 + 4 * c7 + 8 * n7 + 8, (
+                n7 * MONT + r7 * ntt_ops(c7))
+
+        def k7_operands(q7, log_n7):
+            kern7 = kops.NttKernel(q7, find_2nth_root(q7, 2 << log_n7),
+                                   log_n7, log_n7 // 2)
+            kt = kern7.tables(dev)
+            a7 = torch.from_numpy(rng.integers(0, q7, size=1 << log_n7)).to(
+                dev)
+            y7, e7c = compare(f"ntt_col@q={q7},N={1 << log_n7}",
+                              lambda: kntt.ntt_col(a7, kt, 128),
+                              lambda: kntt.ntt_col_plain(a7, kt))
+            _, e7r = compare(f"ntt_row@q={q7},N={1 << log_n7}",
+                             lambda: kntt.ntt_row(y7, kt, 8),
+                             lambda: kntt.ntt_row_plain(y7, kt))
+            return kt, a7, y7, e7c, e7r
 
         log_r = ctx.log_n // 2
         r7, c7 = 1 << log_r, n >> log_r
         for q7 in (Q32, find_ntt_primes(30, ctx.log_n, 1)[0].value):
-            kern7 = kops.NttKernel(q7, find_2nth_root(q7, 2 * n), ctx.log_n,
-                                   log_r)
-            kt = kern7.tables(dev)
-            a7 = torch.from_numpy(rng.integers(0, q7, size=n)).to(dev)
-            y7, e7c = compare(f"ntt_col@q={q7}",
-                              lambda: kntt.ntt_col(a7, kt, 128),
-                              lambda: kntt.ntt_col_plain(a7, kt))
-            _, e7r = compare(f"ntt_row@q={q7}",
-                             lambda: kntt.ntt_row(y7, kt, 8),
-                             lambda: kntt.ntt_row_plain(y7, kt))
-        info = kntt.launch_info(log_r, c7)
-        launch["ntt_col"] = info
-        print(f"  ntt_col launch: grid ({info['grid_x']}) of "
-              f"{c7 // info['grid_x']} columns, {info['threads']} threads, "
-              f"{info['smem_bytes']} B dynamic shared memory, "
-              f"{info['max_active_clusters']} blocks resident at once "
-              f"({info['grid_x'] / info['max_active_clusters']:.2f} "
-              f"waves), {info['registers']} registers, "
-              f"{info['local_bytes']} B local memory a thread", flush=True)
+            kt, a7, y7, e7c, e7r = k7_operands(q7, ctx.log_n)
+        # fig14's four-step NTT: N = 2^12, R = C = 64, its 30-bit prime
+        kt14, a14, y14, _, _ = k7_operands(
+            find_ntt_primes(30, FIG14_NTT_LOG_N, 1)[0].value, FIG14_NTT_LOG_N)
+        launch["ntt_col"] = kntt.launch_info(log_r, c7)
+        launch["ntt_row"] = kntt.row_launch_info(ctx.log_n - log_r, r7)
+        print_launch("ntt_col", launch["ntt_col"], f"R=C={r7}")
+        print_launch("ntt_row", launch["ntt_row"], f"R=C={r7}")
+        n14, r14 = 1 << FIG14_NTT_LOG_N, kt14.tabs.r
+        c14 = n14 // r14
         measure("ntt_col", e7c, lambda: kntt.ntt_col(a7, kt, 128),
-                lambda: kntt.ntt_col_plain(a7, kt),
-                8 * n + 4 * n + 4 * r7 + 8, c7 * ntt_ops(r7))
+                lambda: kntt.ntt_col_plain(a7, kt), *col_cost(n, r7, c7))
+        measure_shape("ntt_col", f"N={n14},R=C={r14}",
+                      lambda: kntt.ntt_col(a14, kt14, 128),
+                      lambda: kntt.ntt_col_plain(a14, kt14),
+                      *col_cost(n14, r14, c14))
         measure("ntt_row", e7r, lambda: kntt.ntt_row(y7, kt, 8),
-                lambda: kntt.ntt_row_plain(y7, kt),
-                4 * n + 4 * n + 4 * c7 + 8 * n + 8,
-                n * MONT + r7 * ntt_ops(c7))
-        print(f"K5 (T={t_n}), K6 (S=6->D=21, S=3->D=24, S=6->D=4 at "
-              f"N={FIG14_BCONV_N}, eager and lazy) and K7 (N={n}, "
-              f"R=C={r7}) torch.equal to their plain versions, ragged "
-              f"N={n - RAGGED} and q={Q32} included", flush=True)
+                lambda: kntt.ntt_row_plain(y7, kt), *row_cost(n, r7, c7))
+        measure_shape("ntt_row", f"N={n14},R=C={r14}",
+                      lambda: kntt.ntt_row(y14, kt14, 8),
+                      lambda: kntt.ntt_row_plain(y14, kt14),
+                      *row_cost(n14, r14, c14))
+        print(f"K5 (T={t_n}; T={len(t14)} at N={n5}), K6 (S=6->D=21, "
+              f"S=3->D=24, S=6->D=4 at N={FIG14_BCONV_N}, eager and lazy) "
+              f"and K7 (N={n}, R=C={r7}; N={n14}, R=C={r14}) torch.equal to "
+              f"their plain versions, ragged N={n - RAGGED} and q={Q32} "
+              f"included", flush=True)
 
     def split_keyswitch(d2, level, km, whole_ms):
         """Device time of each step of FusedKeySwitch.apply, on the

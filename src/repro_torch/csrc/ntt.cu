@@ -6,34 +6,46 @@
 //   ntt_col  grid (C / bc): a block takes bc = 8 adjacent columns (fewer
 //            when C < 8 or R > 2048) and runs the R-point Harvey CT NTT
 //            down each of them (twiddle index depends on the row only);
-//   ntt_row  grid (R / br): a block holds a (br, C) tile, multiplies it
-//            by the fused correction table t2 (phase 2) and runs the
-//            C-point CT stages along its rows (phase 3).
+//   ntt_row  grid (R / rows): a block takes `rows` whole rows, multiplies
+//            each by the fused correction table t2 as it loads it (phase
+//            2) and runs the C-point CT NTT along it (phase 3).
 // Output in kernel order: out[u*C + v] = hat a[brv_R(u) + R*brv_C(v)]
 // (repro/kernels/ref.py:103-110). Twiddles and t2 are in Montgomery form,
 // so each product is one REDC; sums are formed in 64 bits (q < 2^32).
 //
-// What bounds it: at one row of N = 2^16 neither bytes (1.3 MB) nor
-// operations bound it; the launch and the dependent chain of log R (log
-// C) stages do. The column kernel therefore does not keep the TPU's
-// (R, 128) tile (2 blocks at R = C = 256, a block barrier a stage): a
-// column's NTT belongs to R / 16 threads holding 16 values each in
-// registers (one thread holding all R values where R <= 16), its stages
-// run as the radix passes of rt::Sched<1, log R> (two radix-16 passes and
-// one exchange through shared memory at R = 256), and 8 adjacent columns
-// a block keep the int64 loads in whole 32-byte sectors while giving 32
-// blocks at R = C = 256. Above R = 2048 a column takes more than 128
-// threads, so a block takes fewer columns (one of 1024 threads at R =
-// 16384, the largest R). The row kernel keeps the TPU's (8, C) tile.
+// What bounds them: at one row of N = 2^16 neither bytes (0.8 and 1.0 MB)
+// nor operations bound them; the launch and the dependent chain of log R
+// (log C) stages do. So neither keeps the TPU's tile ((R, 128) columns,
+// (8, C) rows: 2 and 32 blocks at R = C = 256, a block barrier a stage).
+// A column's (row's) NTT belongs to R / 16 (C / 16) threads holding 16
+// values each in registers (one thread holding all of them where R (C)
+// <= 16), and its stages run as the radix passes of rt::Sched<1, log R>
+// (<1, log C>): two radix-16 passes and one exchange through shared
+// memory at 256 points. 8 adjacent columns a block keep ntt_col's int64
+// loads in whole 32-byte sectors while giving 32 blocks at R = C = 256;
+// above R = 2048 a column takes more than 128 threads, so a block takes
+// fewer columns (one of 1024 threads at R = 16384, the largest R).
+// ntt_row loads a row at Sched's first-pass positions (for each value,
+// the row's threads read neighbouring words), forms the t2 product there,
+// and takes as many rows a block as 16 threads hold (kernels/ntt.py::
+// row_block: one at C = 256, so 256 blocks; four at C = 64), which timed
+// within 0.0001 ms of 32 or 64 threads a block. A thread issues all 32 of its
+// loads (y and t2) before the first product, which takes more than the
+// 64 registers a block of 1024 threads leaves it: so a block holds at
+// most 64 threads where a row takes fewer. While a row's threads fit in
+// one warp (C <= 512) its exchanges need only a barrier of that row's
+// lanes. It stores int64 in 16-byte words (two values), straight from the
+// last pass's runs of 2^kLast contiguous values (staging them through the
+// buffer so that a warp's stores are contiguous timed 9-20 % slower).
+// Rows of up to 16384 points: a longer row would take more than 1024
+// threads.
 //
 // Tensors: a and out int64 (N,) residues < q; the (R, C) intermediate,
 // tables and constants are u32 in int32 storage, contiguous.
 
 #include "common.cuh"
 
-using rt::add_mod;
 using rt::mont_mul;
-using rt::sub_mod;
 
 namespace {
 
@@ -105,40 +117,116 @@ ntt_col_kernel(const int64_t* __restrict__ a, uint32_t* __restrict__ y,
   }
 }
 
-__global__ void __launch_bounds__(rt::kMaxThreads)
+// Exchange-buffer word of row position p in ntt_row: one pad word after
+// every 16, rows C + C / 16 words apart, so that at C = 256 (16 threads a
+// row) neither the first pass's stores (positions
+// tid + 16 j) nor the last pass's loads (16 tid + j) of a warp hit a bank
+// twice.
+__device__ __forceinline__ int row_word(int p) { return p + (p >> 4); }
+
+// Barrier of one row's T threads: the row's own lanes while they lie in
+// one warp, the block above that.
+template <int T>
+__device__ __forceinline__ void row_sync() {
+  if constexpr (T <= 32) {
+    const unsigned lane = threadIdx.x & 31u;
+    __syncwarp(T == 32 ? 0xffffffffu
+                       : ((1u << T) - 1u) << (lane & ~(T - 1u)));
+  } else {
+    __syncthreads();
+  }
+}
+
+// Two int64 outputs at o (16-byte aligned) from two u32 values.
+__device__ __forceinline__ void st_pair(int64_t* o, uint32_t a, uint32_t b) {
+  *reinterpret_cast<longlong2*>(o) = make_longlong2(a, b);
+}
+
+// Threads that take one row of C = 2^LOGC points (C / 16, one where C <=
+// 16), and the threads a block of ntt_row may hold: one row's, or
+// kRowMaxThreads where that is more. A bound below 1024 leaves ptxas the
+// registers to keep a thread's 32 loads (y and t2) in flight at once.
+constexpr int kRowMaxThreads = 64;
+
+template <int LOGC>
+struct RowShape {
+  static constexpr int kThreads = LOGC < 5 ? 1 : (1 << LOGC) / rt::kVals;
+  static constexpr int kBlock =
+      kThreads > kRowMaxThreads ? kThreads : kRowMaxThreads;
+};
+
+// Thread t of a block takes row t / T of the block's `rows` and, within
+// that row's NTT, thread index t % T of rt::Sched<1, LOGC> (whose "chunk"
+// is the row), T = RowShape<LOGC>::kThreads. Shared: rows * (C + C / 16)
+// u32 for LOGC >= 5, none below.
+template <int LOGC>
+__global__ void __launch_bounds__(RowShape<LOGC>::kBlock)
 ntt_row_kernel(const uint32_t* __restrict__ y, const uint32_t* __restrict__ t2,
                const uint32_t* __restrict__ rp,
                const uint32_t* __restrict__ qv,
                const uint32_t* __restrict__ qiv, int64_t* __restrict__ out,
-               int log_c, int br) {
-  extern __shared__ uint32_t tile[];          // (br, C)
-  const int C = 1 << log_c;
-  const size_t base = static_cast<size_t>(blockIdx.x) * br * C;
+               int rows) {
+  constexpr int C = 1 << LOGC;
+  constexpr int T = RowShape<LOGC>::kThreads;
+  const int lrow = threadIdx.x / T, tid = threadIdx.x % T;
+  const size_t base = (static_cast<size_t>(blockIdx.x) * rows + lrow) * C;
+  const uint32_t* yr = y + base;
+  const uint32_t* tr = t2 + base;
+  int64_t* o = out + base;
   const uint32_t q = qv[0], qi = qiv[0];
-  for (int i = threadIdx.x; i < br * C; i += blockDim.x)
-    tile[i] = mont_mul(y[base + i], t2[base + i], q, qi);
-  __syncthreads();
-  const int hc = C / 2;
-  for (int m = 1; m < C; m <<= 1) {
-    const int t = C / (2 * m);
-    for (int b = threadIdx.x; b < br * hc; b += blockDim.x) {
-      const int k = b % hc;                   // butterfly index in the row
-      const int g = k / t;
-      const int p0 = (b / hc) * C + 2 * g * t + k % t;
-      const int p1 = p0 + t;
-      const uint32_t u = tile[p0];
-      const uint32_t v = mont_mul(tile[p1], rp[m + g], q, qi);
-      tile[p0] = add_mod(u, v, q);
-      tile[p1] = sub_mod(u, v, q);
+  uint32_t v[rt::kVals];
+  if constexpr (LOGC < 5) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) v[j] = mont_mul(yr[j], tr[j], q, qi);
+    rt::radix_set<1, LOGC>(v, rp, 0, 0, 0, q, qi);
+    if constexpr (C == 1) {
+      o[0] = v[0];
+    } else {
+#pragma unroll
+      for (int j = 0; j < C; j += 2) st_pair(o + j, v[j], v[j + 1]);
     }
-    __syncthreads();
+  } else {
+    using S = rt::Sched<1, LOGC>;
+    constexpr int kStLast = LOGC - S::kLast;
+    constexpr int kRowWords = C + C / 16;
+    extern __shared__ uint32_t smem[];
+    uint32_t* buf = smem + lrow * kRowWords;
+    uint32_t w[rt::kVals];
+#pragma unroll
+    for (int j = 0; j < rt::kVals; ++j) {
+      const int p = S::mid_pos(tid, 0, j);
+      v[j] = yr[p];
+      w[j] = tr[p];
+    }
+#pragma unroll
+    for (int j = 0; j < rt::kVals; ++j) v[j] = mont_mul(v[j], w[j], q, qi);
+    rt::radix_set<1, 4>(v, rp, 0, S::mid_blk(tid, 0), 0, q, qi);
+#pragma unroll
+    for (int st = 4; st < kStLast; st += 4) {
+#pragma unroll
+      for (int j = 0; j < rt::kVals; ++j)
+        buf[row_word(S::mid_pos(tid, st - 4, j))] = v[j];
+      row_sync<T>();
+#pragma unroll
+      for (int j = 0; j < rt::kVals; ++j)
+        v[j] = buf[row_word(S::mid_pos(tid, st, j))];
+      rt::radix_set<1, 4>(v, rp, st, S::mid_blk(tid, st), 0, q, qi);
+    }
+#pragma unroll
+    for (int j = 0; j < rt::kVals; ++j)
+      buf[row_word(S::mid_pos(tid, kStLast - 4, j))] = v[j];
+    row_sync<T>();
+#pragma unroll
+    for (int j = 0; j < rt::kVals; ++j)
+      v[j] = buf[row_word(S::last_pos(tid, j))];
+#pragma unroll
+    for (int r = 0; r < (rt::kVals >> S::kLast); ++r)
+      rt::radix_set<1, S::kLast>(v + (r << S::kLast), rp, kStLast,
+                                 S::last_blk(tid, r << S::kLast), 0, q, qi);
+#pragma unroll
+    for (int j = 0; j < rt::kVals; j += 2)
+      st_pair(o + S::last_pos(tid, j), v[j], v[j + 1]);
   }
-  for (int i = threadIdx.x; i < br * C; i += blockDim.x) out[base + i] = tile[i];
-}
-
-int threads_for(int butterflies) {
-  int t = butterflies < 32 ? 32 : butterflies;
-  return t > rt::kMaxThreads ? rt::kMaxThreads : t;
 }
 
 }  // namespace
@@ -169,8 +257,8 @@ static int col_launch(int* info, const int64_t* a, uint32_t* y,
   return rt::cluster_launch(L, ntt_col_kernel<LOGR>, a, y, rp, q, qi, C, bc);
 }
 
-#define RT_BY_LOG_R(FN, ...)                                               \
-  switch (log_r) {                                                         \
+#define RT_BY_LOG(LOG, FN, ...)                                            \
+  switch (LOG) {                                                           \
     case 0: return FN<0>(__VA_ARGS__);                                     \
     case 1: return FN<1>(__VA_ARGS__);                                     \
     case 2: return FN<2>(__VA_ARGS__);                                     \
@@ -193,33 +281,53 @@ static int col_launch(int* info, const int64_t* a, uint32_t* y,
 extern "C" int rt_ntt_col(const void* a, void* y, const void* rp,
                           const void* q, const void* qi, int log_r, int C,
                           void* stream) {
-  RT_BY_LOG_R(col_launch, nullptr, static_cast<const int64_t*>(a),
-              static_cast<uint32_t*>(y), static_cast<const uint32_t*>(rp),
-              static_cast<const uint32_t*>(q),
-              static_cast<const uint32_t*>(qi), C,
-              static_cast<cudaStream_t>(stream))
+  RT_BY_LOG(log_r, col_launch, nullptr, static_cast<const int64_t*>(a),
+            static_cast<uint32_t*>(y), static_cast<const uint32_t*>(rp),
+            static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(qi),
+            C, static_cast<cudaStream_t>(stream))
 }
 
 // The launch rt_ntt_col would make for (R, C) = (2^log_r, C), written to
 // info[9] as rt::ClusterLaunch does (cluster 1); nothing runs.
 extern "C" int rt_ntt_col_info(int* info, int log_r, int C) {
-  RT_BY_LOG_R(col_launch, info, nullptr, nullptr, nullptr, nullptr, nullptr,
-              C, nullptr)
+  RT_BY_LOG(log_r, col_launch, info, nullptr, nullptr, nullptr, nullptr,
+            nullptr, C, nullptr)
 }
 
+// A block of ntt_row: `rows` whole rows of C = 2^LOGC points; rows must
+// divide R and keep the block within RowShape<LOGC>::kBlock threads
+// (kernels/ntt.py::row_block picks them).
+template <int LOGC>
+static int row_launch(int* info, const uint32_t* y, const uint32_t* t2,
+                      const uint32_t* rp, const uint32_t* q,
+                      const uint32_t* qi, int64_t* out, int R, int rows,
+                      cudaStream_t stream) {
+  static_assert(RowShape<LOGC>::kBlock <= rt::kMaxThreads,
+                "C / 16 threads a row: C <= 16384");
+  constexpr int T = RowShape<LOGC>::kThreads;
+  if (rows < 1 || R % rows != 0 || rows * T > RowShape<LOGC>::kBlock)
+    return cudaErrorInvalidValue;
+  const size_t smem = LOGC < 5 ? 0 : sizeof(uint32_t) * rows *
+                                         ((1 << LOGC) + (1 << LOGC) / 16);
+  const rt::ClusterLaunch L{dim3(R / rows), rows * T, smem, 1, stream, info};
+  return rt::cluster_launch(L, ntt_row_kernel<LOGC>, y, t2, rp, q, qi, out,
+                            rows);
+}
+
+// log_c at most 14: C / 16 threads a row fill a block of 1024.
 extern "C" int rt_ntt_row(const void* y, const void* t2, const void* rp,
                           const void* q, const void* qi, void* out, int R,
-                          int log_c, int br, void* stream) {
-  const int C = 1 << log_c;
-  const int smem = static_cast<int>(sizeof(uint32_t)) * br * C;
-  cudaError_t err = cudaFuncSetAttribute(
-      ntt_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  ntt_row_kernel<<<R / br, threads_for(br * C / 2), smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(y), static_cast<const uint32_t*>(t2),
-      static_cast<const uint32_t*>(rp), static_cast<const uint32_t*>(q),
-      static_cast<const uint32_t*>(qi), static_cast<int64_t*>(out), log_c,
-      br);
-  return cudaGetLastError();
+                          int log_c, int rows, void* stream) {
+  RT_BY_LOG(log_c, row_launch, nullptr, static_cast<const uint32_t*>(y),
+            static_cast<const uint32_t*>(t2),
+            static_cast<const uint32_t*>(rp), static_cast<const uint32_t*>(q),
+            static_cast<const uint32_t*>(qi), static_cast<int64_t*>(out), R,
+            rows, static_cast<cudaStream_t>(stream))
+}
+
+// The launch rt_ntt_row would make for (R, C) = (R, 2^log_c), written to
+// info[9] as rt::ClusterLaunch does (cluster 1); nothing runs.
+extern "C" int rt_ntt_row_info(int* info, int R, int log_c, int rows) {
+  RT_BY_LOG(log_c, row_launch, info, nullptr, nullptr, nullptr, nullptr,
+            nullptr, nullptr, R, rows, nullptr)
 }

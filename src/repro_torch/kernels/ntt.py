@@ -6,9 +6,10 @@ Replaces `repro/kernels/ntt.py::_ntt_col_kernel` (``ntt.py:52``) and
 Source: ``repro_torch/csrc/ntt.cu``; two kernels, ``ntt_col`` (phase 1:
 the column NTTs, each run by R / 16 threads holding its values in
 registers, 8 adjacent columns a block up to R = 2048, fewer above) and
-``ntt_row`` (phases 2 and 3: the fused correction multiply and the row
-NTTs on a (block_r, C) tile), each with its own launch count. The output
-is in kernel order (`ref.FourStepTables`).
+``ntt_row`` (phases 2 and 3: each row's correction multiply, fused into
+its load, and its NTT, run by C / 16 threads holding its values in
+registers, `row_block` rows a block), each with its own launch count.
+The output is in kernel order (`ref.FourStepTables`).
 """
 from __future__ import annotations
 
@@ -33,6 +34,9 @@ SMEM_BYTES = 232448          # shared memory a block may use on Hopper
 COL_BLOCK = 8                # adjacent columns a block of ntt_col takes
 MAX_THREADS = 1024           # threads of a block
 MAX_COL_LOG_R = 14           # R / 16 threads a column: 1024 at most
+MAX_ROW_LOG_C = 14           # C / 16 threads a row: 1024 at most
+ROW_THREADS = 16             # threads a block of ntt_row aims at
+ROW_MAX_THREADS = 64         # ntt_row's launch bound where a row takes fewer
 I32 = torch.int32
 
 
@@ -134,6 +138,72 @@ def ntt_row_plain(y, kt: FourStepKernelTables):
     return _ct_stages_axis0(x.T, u32(kt.rp_row_m), q, qi).T.reshape(-1)
 
 
+def row_threads(log_c: int) -> int:
+    """Threads that take one row of ntt_row: C / 16, one where C <= 16."""
+    return 1 << (log_c - 4) if log_c > 4 else 1
+
+
+def row_block(log_c: int, r: int) -> int:
+    """Rows a block of ntt_row takes: as many whole rows as `ROW_THREADS`
+    threads hold, one where a row takes more, at most R. R and the threads
+    a row are powers of two, so the rows divide R, and a block stays
+    within the kernel's launch bound (csrc/ntt.cu ``RowShape::kBlock``:
+    one row's threads, or `ROW_MAX_THREADS` where that is more)."""
+    return min(r, max(1, ROW_THREADS // row_threads(log_c)))
+
+
+def row_word(p):
+    """Word of row position p in ntt_row's exchange buffer (csrc/ntt.cu
+    ``row_word``): one pad word after every 16; rows `row_words` apart."""
+    return p + (p >> 4)
+
+
+def row_words(c: int) -> int:
+    return c + c // 16
+
+
+def ntt_row_sched(y, kt: FourStepKernelTables):
+    """`ntt_row` computed as its threads compute it, on int64 tensors with
+    the kernel's index formulas: a row of C <= 16 values is one thread's
+    single radix pass; above that, thread tid of a row loads the 16
+    values `common.sched_pos` gives it in the first pass and multiplies
+    them by t2 there, then runs each radix pass of the row's C points,
+    the passes exchange values through each block's buffer of
+    `row_block` rows laid out by `row_word`, and the last pass's values
+    are stored where they lie."""
+    tabs = kt.tabs
+    r, c = tabs.r, tabs.c
+    log_c = c.bit_length() - 1
+    q, qi = u32(kt.q32), u32(kt.qinv32)
+    rp = u32(kt.rp_row_m)[None, :]
+    x, t2 = u32(y).reshape(r, c), u32(kt.t2_m).reshape(r, c)
+    if log_c < 5:
+        z = sched_radix(mont_mul32(x, t2, q, qi)[:, None, :], rp, q, qi, 1,
+                        0, 0, log_c, torch.zeros((1, c), dtype=torch.int64))
+        return z.reshape(-1)
+    rows = row_block(log_c, r)
+    threads = row_threads(log_c)
+    row = torch.arange(r)[:, None, None]
+    blk, word0 = row // rows, (row % rows) * row_words(c)
+    tid = torch.arange(threads)[:, None]
+    j = torch.arange(SCHED_VALS)[None, :]
+    buf = torch.zeros((r // rows, rows * row_words(c)), dtype=torch.int64)
+    passes = sched_passes(log_c)
+    for i, (st, lr) in enumerate(passes):
+        pos, sets = sched_pos(log_c, st, lr, tid, j)
+        word = word0 + row_word(pos)
+        if i == 0:
+            v = mont_mul32(x[row, pos], t2[row, pos], q, qi)
+        else:
+            v = buf[blk, word]
+        v = sched_radix(v, rp, q, qi, 1, 0, st, lr, sets)
+        if i < len(passes) - 1:
+            buf[blk, word] = v
+    out = torch.empty_like(x)
+    out[row, pos] = v
+    return out.reshape(-1)
+
+
 def ntt_four_step_plain(a, kt: FourStepKernelTables):
     """Plain version of `ntt_four_step` (the tiles do not change what is
     computed)."""
@@ -149,12 +219,6 @@ def _block(kt: FourStepKernelTables, block: int, dim: int) -> int:
             f"four-step NTT blocks must divide the (R, C)=({kt.tabs.r}, "
             f"{kt.tabs.c}) tile grid; got {block} for {dim}")
     return block
-
-
-def _fits(tile: int) -> None:
-    if 4 * tile > SMEM_BYTES:
-        raise ValueError(f"four-step NTT tile of {tile} words exceeds a "
-                         f"block's shared memory")
 
 
 def ntt_col(a: torch.Tensor, kt: FourStepKernelTables,
@@ -194,20 +258,38 @@ def launch_info(log_r: int, c: int) -> Dict[str, int]:
 def ntt_row(y: torch.Tensor, kt: FourStepKernelTables,
             block_r: int) -> torch.Tensor:
     """Phases 2 and 3: y (R, C) int32 times t2, each row through its
-    C-point NTT -> (N,) int64; one block per (block_r, C) tile."""
+    C-point NTT -> (N,) int64. `block_r`, the reference's row tile, must
+    divide R as there; the kernel's tiling on Hopper is its own (C / 16
+    threads a row, `row_block` rows a block; see `ntt_row_sched`)."""
     r, c = kt.tabs.r, kt.tabs.c
-    block_r = _block(kt, block_r, r)
+    log_c = c.bit_length() - 1
+    _block(kt, block_r, r)
     check(y, "y", I32, (r, c))
     if not use_kernel(y, kt.t2_m):
         return ntt_row_plain(y, kt)
-    _fits(block_r * c)
+    _check_row(log_c)
     out = torch.empty(r * c, dtype=torch.int64, device=y.device)
     fn = build.bind(build.library("ntt.cu"), "rt_ntt_row", 6, 3)
     build.launch(fn, y.data_ptr(), kt.t2_m.data_ptr(), kt.rp_row_m.data_ptr(),
                  kt.q32.data_ptr(), kt.qinv32.data_ptr(), out.data_ptr(), r,
-                 c.bit_length() - 1, block_r)
+                 log_c, row_block(log_c, r))
     NTT_ROW.launches += 1
     return out
+
+
+def _check_row(log_c: int) -> None:
+    if not 0 <= log_c <= MAX_ROW_LOG_C:
+        raise ValueError(f"ntt_row: rows of C = 2^{log_c} points; the "
+                         f"kernel takes C <= {1 << MAX_ROW_LOG_C}")
+
+
+def row_launch_info(log_c: int, r: int) -> Dict[str, int]:
+    """The launch `ntt_row` makes for (R, C) = (r, 2^log_c) on the current
+    card (`row_block` rows a block), read from the built library without
+    running it: `build.LAUNCH_KEYS` as `launch_info`."""
+    _check_row(log_c)
+    return build.launch_info("ntt.cu", "rt_ntt_row_info", r, log_c,
+                             row_block(log_c, r))
 
 
 def ntt_four_step(a: torch.Tensor, kt: FourStepKernelTables, *,

@@ -19,8 +19,11 @@ the largest instantiated) against D = 4, 21, 24, 27 and N = 65536,
 65500, 1024, 777, 100, an 8-byte aligned source, its launch against
 ``bconv_sched`` and its ValueError above the largest S; ntt_col at
 R = 16 to 16384 (every kind of its kernel) with every block_c the
-reference accepts and its launch, and the staged keyswitch against the
-library route.
+reference accepts and its launch; ntt_row at C = 1 to 16384 (every kind
+of its kernel) with every block_r the reference accepts, its launch
+(the tiling ``ntt_row_sched`` models), its ValueError above C = 16384
+and its C entry's refusal of a tiling past the launch bound; and the
+staged keyswitch against the library route.
 Imports nothing of JAX, so it runs where only torch is installed.
 """
 import functools
@@ -39,6 +42,7 @@ from repro_torch.core.params import find_2nth_root  # noqa: E402
 from repro_torch.core.params import find_ntt_primes  # noqa: E402
 from repro_torch.core.params import paper_params_bootstrap  # noqa: E402
 from repro_torch.kernels import bconv as bc  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels import keyswitch as ks  # noqa: E402
 from repro_torch.kernels import modmul as mm  # noqa: E402
@@ -220,6 +224,70 @@ def test_ntt_col_equal_plain(cuda, q, log_n, log_r):
         c // bc, 1, 1), info
     assert info["threads"] == bc * max(1, (1 << log_r) // 16), info
     assert info["local_bytes"] <= 16 and info["max_active_clusters"] > 0
+
+
+@pytest.mark.parametrize("q", [None, Q32])
+@pytest.mark.parametrize("log_n,log_c", [
+    (6, 0), (8, 4), (10, 5), (12, 6), (16, 8), (12, 9), (16, 10),
+    (14, 12), (16, 13), (16, 14)])
+def test_ntt_row_equal_plain(cuda, q, log_n, log_c):
+    """Every kind of row kernel: C = 1 and 16 (one thread a row), 32, 64
+    and 256 (one exchange), 512 (two, the row within one warp), 1024 and
+    4096 (two, a block barrier), 8192 and 16384 (three; one row of 1024
+    threads a block), with every block_r the reference accepts (it must
+    divide R; the kernel's tiling does not depend on it), and the launch
+    the library reports for it, against the tiling `ntt_row_sched`
+    models."""
+    q = q or find_ntt_primes(30, log_n, 1)[0].value
+    log_r = log_n - log_c
+    kern = kops.NttKernel(q, find_2nth_root(q, 2 << log_n), log_n, log_r)
+    kt = kern.tables(cuda)
+    r, c = 1 << log_r, 1 << log_c
+    y = torch.from_numpy(np.random.default_rng(log_c).integers(
+        0, q, (r, c))).to(torch.int32).to(cuda)
+    want = kntt.ntt_row_plain(y, kt)
+    for block_r in (1 << k for k in range(log_r + 1)):
+        before = kntt.NTT_ROW.launches
+        assert torch.equal(kntt.ntt_row(y, kt, block_r), want), block_r
+        assert kntt.NTT_ROW.launches == before + 1
+    if r > 2:
+        with pytest.raises(ValueError, match="must divide"):
+            kntt.ntt_row(y, kt, 3)
+    rows = kntt.row_block(log_c, r)
+    info = kntt.row_launch_info(log_c, r)
+    assert (info["grid_x"], info["grid_y"], info["cluster"]) == (
+        r // rows, 1, 1), info
+    assert info["threads"] == rows * kntt.row_threads(log_c), info
+    words = kntt.row_words(c) if log_c > 4 else 0
+    assert info["smem_bytes"] == 4 * rows * words, info
+    assert info["local_bytes"] <= 16, info
+    assert info["max_active_clusters"] > 0, info
+
+
+def test_ntt_row_refuses_rows_above_16384(cuda):
+    """C = 32768 (R = 2 at N = 2^16) would take 2048 threads a row: a
+    ValueError before any launch, on the call and on the read-out."""
+    q = find_ntt_primes(30, 16, 1)[0].value
+    kern = kops.NttKernel(q, find_2nth_root(q, 2 << 16), 16, 1)
+    kt = kern.tables(cuda)
+    y = torch.zeros((2, 1 << 15), dtype=torch.int32, device=cuda)
+    before = kntt.NTT_ROW.launches
+    with pytest.raises(ValueError, match="C <= 16384"):
+        kntt.ntt_row(y, kt, 1)
+    with pytest.raises(ValueError, match="C <= 16384"):
+        kntt.row_launch_info(15, 2)
+    assert kntt.NTT_ROW.launches == before
+
+
+def test_ntt_row_refuses_tiling_past_its_bound(cuda):
+    """The C entry refuses a tiling past the kernel's launch bound: at C =
+    256 a block holds at most 64 threads (4 rows), so 8 rows, or rows that
+    do not divide R, return an error and launch nothing."""
+    for rows in (8, 3, 0):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.launch_info("ntt.cu", "rt_ntt_row_info", 256, 8, rows)
+    assert build.launch_info("ntt.cu", "rt_ntt_row_info", 256, 8, 4)[
+        "threads"] == 64
 
 
 def test_modmul_ragged_and_counted(cuda):
