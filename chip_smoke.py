@@ -43,12 +43,29 @@ non-zero:
 6. serve  — the port's serve_fhe main path (--backend ciphertext
    --use-kernels --device cuda, paper parameters from start level 20,
    8 requests over helr/lola/matvec/poly): every workload's accuracy OK
-   and K1-K4 launched.
+   and K1-K4 launched;
+7. linalg — core/linalg at full width (paper_params_bootstrap, one
+   ciphertext at level 20): matvec_bsgs over a banded 16-diagonal matrix
+   with and without hoisting (6 Galois keys), a degree-31 Chebyshev
+   series and HELR's degree-3 sigmoid, each decrypt within the engine's
+   tolerance of numpy on the plaintext, each call's time and the keygen
+   time printed;
+8. bootstrap — core/bootstrap at tests/test_bootstrap.py's parameters on
+   the ring 2^BOOT_LOG_N = 2^9 (log N 16 is out of reach of the
+   reference's dense n x n embedding inverse, and above 2^9 its error
+   passes the test's bound): a level-0 ciphertext refreshed to level >= 2
+   with max error < 0.05, the setup and each stage timed;
+9. card against CPU — one matvec_bsgs (both modes, log N 8) and one
+   bootstrap (log N 7) on the card and on the CPU from the same seeds:
+   torch.equal. The CPU tests hold the CPU route to the JAX package.
 
-Launch counts are set to 0 just before each of the staged, fig14 and
-serve paths and read just after. Then a JSON line of per-kernel numbers
-(all ten kernel rows, launches per path), the card's name and power limit
-from nvidia-smi, and the final status line. Imports nothing of JAX.
+The deep workloads (7-9) keyswitch through the library route, as the
+reference does, and launch no kernel: their counts must stay 0.
+Launch counts are set to 0 just before each of the staged, fig14,
+serve, linalg and bootstrap paths and read just after. Then a JSON line
+of per-kernel numbers (all ten kernel rows, launches per path), the
+card's name and power limit from nvidia-smi, and the final status line.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -58,6 +75,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -83,6 +102,13 @@ FIG14_BCONV_N = 1024  # fig14's BConv columns (benchmarks/fig14_kernels.py)
 FIG14_NTT_LOG_N = 12  # fig14's four-step NTT: N = 4096, R = C = 64
 FIG14_KEYSWITCH = dict(log_n=10, n_levels=8, dnum=2, log_scale=26)
 Q32 = 3221225473    # paper_params_bootstrap's 32-bit special prime
+LINALG_DIAGS = 16   # the linalg phase's banded matrix: diagonals 0..15
+CHEB_DEGREE = 31    # EvalMod's default Chebyshev degree (BootstrapConfig)
+SIGMOID3 = (0.5, 0.197, 0.0, -0.004)    # HELR's degree-3 sigmoid
+# the bootstrap phase's ring: the largest at which tests/test_bootstrap.py's
+# parameters keep its 0.05 error bound (benchmarks/bootstrap_ring.py)
+BOOT_LOG_N = 9
+BOOT_SMALL_LOG_N = 7  # tests/test_bootstrap.py's ring, card against CPU
 
 # kernels each driven path must launch, and the path whose count is a
 # kernel's `launches` in the JSON line
@@ -165,6 +191,101 @@ def ntt_ops(n: int) -> int:
     return n // 2 * (n.bit_length() - 1) * (MONT + 2 * ADD)
 
 
+def banded_diagonals(s, n_diag, rng):
+    """The generalized diagonals 0..n_diag-1 of a banded s x s matrix,
+    as matvec_bsgs takes them (never a dense s x s matrix)."""
+    return {d: 0.1 * (rng.normal(size=s) + 1j * rng.normal(size=s))
+            for d in range(n_diag)}
+
+
+def banded_matvec(diags, v):
+    """M @ v in numpy from M's generalized diagonals."""
+    return sum(dg * np.roll(v, -d) for d, dg in diags.items())
+
+
+def small_matvec(dev):
+    """One matvec_bsgs (hoisted and not) at the CPU tests' size
+    (tests/test_torch_linalg.py's parameters) on `dev`, from fixed seeds."""
+    from repro_torch.benchmarks.common import CkksStack
+    from repro_torch.core import linalg
+    from repro_torch.core.params import test_params
+    params = test_params(log_n=8, n_levels=4, dnum=2, log_scale=26)
+    st = CkksStack(params, dev, seed=7)
+    rng = np.random.default_rng(1234)
+    diags = banded_diagonals(params.slots, 6, rng)
+    gks = st.encr.galois_keygen(st.sk,
+                                linalg.matvec_keys_needed(st.ctx, diags))
+    ct = st.encrypt(rng.normal(size=params.slots), 2.0 ** 26,
+                    params.n_levels)
+    return [linalg.matvec_bsgs(st.ctx, ct, diags, gks, st.enc,
+                               use_hoisting=h) for h in (True, False)]
+
+
+def linalg_phase(dev, params, level):
+    """matvec_bsgs (hoisted and not), a degree-31 Chebyshev series and
+    HELR's degree-3 sigmoid on one ciphertext at `level`, each decrypt
+    held to the engine's tolerance of the numpy result."""
+    from repro_torch.benchmarks.common import CkksStack, synced
+    from repro_torch.compiler.engine import decrypt_tolerance
+    from repro_torch.core import linalg
+    tol = decrypt_tolerance(params)
+    s = params.slots
+    scale = 2.0 ** params.log_scale
+    rng = np.random.default_rng(5)
+    st = CkksStack(params, dev, seed=17)
+    ctx = st.ctx
+    diags = banded_diagonals(s, LINALG_DIAGS, rng)
+    # the keys this call uses: baby steps d % bs, giant steps d - d % bs
+    # (matvec_keys_needed, as in the reference, asks for every giant step
+    # whether or not its group holds a diagonal: 8191 keys here)
+    bs, _ = linalg.bsgs_split(list(diags), s)
+    steps = sorted(({d % bs for d in diags} | {d - d % bs for d in diags})
+                   - {0})
+    elts = sorted(ctx.rotation_element(j) for j in steps)
+    (gks, rk), t_key = synced(lambda: (st.encr.galois_keygen(st.sk, elts),
+                                       st.encr.relin_keygen(st.sk)),
+                              device=dev)
+    print(f"  keygen: {len(gks)} Galois keys (rotations by {steps}) and "
+          f"the relin key, {t_key:.3f} s; "
+          f"{sum(k.data.numel() for k in gks.values()) * 8 / 2 ** 20:.0f} "
+          f"MiB of Galois keys", flush=True)
+    v = 0.5 * (rng.normal(size=s) + 1j * rng.normal(size=s))
+    x = rng.uniform(-1, 1, size=s)
+    ct_v = st.encrypt(v, scale, level)
+    ct_x = st.encrypt(x, scale, level)
+    want = banded_matvec(diags, v)
+    got = {}
+    for hoist in (True, False):
+        out, secs = synced(linalg.matvec_bsgs, ctx, ct_v, diags, gks, st.enc,
+                           hoist, device=dev)
+        got[hoist] = st.decrypt(out)
+        err = float(np.abs(got[hoist] - want).max())
+        print(f"  matvec_bsgs ({LINALG_DIAGS} diagonals, "
+              f"use_hoisting={hoist}): {secs:.3f} s, level {level} -> "
+              f"{out.level}, max |err| {err:.3e} (tolerance {tol:.3e})",
+              flush=True)
+        if not err < tol:
+            raise AssertionError(f"matvec_bsgs (hoisting {hoist}) error "
+                                 f"{err} over {tol}")
+    print(f"  hoisted against unhoisted decrypts: max |diff| "
+          f"{np.abs(got[True] - got[False]).max():.3e}", flush=True)
+    cheb = linalg.chebyshev_coeffs(lambda t: np.sin(2 * np.pi * t),
+                                   CHEB_DEGREE)
+    for name, call, coeffs, plain in (
+            (f"poly_eval_chebyshev (degree {CHEB_DEGREE})",
+             linalg.poly_eval_chebyshev, cheb,
+             np.polynomial.chebyshev.chebval(x, cheb)),
+            ("poly_eval_power_basis (degree 3, HELR's sigmoid)",
+             linalg.poly_eval_power_basis, list(SIGMOID3),
+             np.polynomial.polynomial.polyval(x, SIGMOID3))):
+        out, secs = synced(call, ctx, ct_x, coeffs, rk, st.enc, device=dev)
+        err = float(np.abs(st.decrypt(out).real - plain).max())
+        print(f"  {name}: {secs:.3f} s, level {level} -> {out.level}, "
+              f"max |err| {err:.3e} (tolerance {tol:.3e})", flush=True)
+        if not err < tol:
+            raise AssertionError(f"{name} error {err} over {tol}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -172,12 +293,12 @@ def main() -> int:
               "script measures the port on a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    import numpy as np
     from repro_torch.core import modarith as ma
     from repro_torch.core import ops as hops
     from repro_torch.core.context import CkksContext
     from repro_torch.core.encryptor import CkksEncryptor
-    from repro_torch.benchmarks import fig14_kernels
+    from repro_torch.benchmarks import bootstrap_ring, fig14_kernels
+    from repro_torch.benchmarks import common as bench_common
     from repro_torch.core.params import (find_2nth_root, find_ntt_primes,
                                          paper_params_bootstrap, test_params)
     from repro_torch.kernels import bconv as bc
@@ -676,6 +797,51 @@ def main() -> int:
               f"{m.count('requests_completed')} requests completed, "
               f"peak device memory {peak / 2 ** 30:.2f} GiB, "
               f"launches {launches}", flush=True)
+
+    del res, eng, cb
+    torch.cuda.empty_cache()
+
+    def no_kernel_launched(path):
+        """The deep workloads keyswitch through the library route of
+        core/ops, as the reference does: no kernel of K1-K7 may launch."""
+        paths[path] = launched = {
+            k: v.launches for k, v in common.KERNELS.items()}
+        if any(launched.values()):
+            raise AssertionError(f"kernels launched on the {path} path: "
+                                 f"{launched}")
+
+    with Phase("linalg"):
+        common.reset_launches()
+        linalg_phase(dev, params, LEVEL)
+        no_kernel_launched("linalg")
+        torch.cuda.empty_cache()
+
+    with Phase("bootstrap"):
+        common.reset_launches()
+        times = {}
+        out, err = bootstrap_ring.run_bootstrap(dev, BOOT_LOG_N, times)
+        no_kernel_launched("bootstrap")
+        print("  " + bootstrap_ring.describe(BOOT_LOG_N, times, out, err),
+              flush=True)
+        if not bootstrap_ring.within_bound(out, err):
+            raise AssertionError(f"bootstrap: level {out.level}, error "
+                                 f"{err} (needs >= 2 and < 0.05)")
+
+    with Phase("card against CPU"):
+        cpu = torch.device("cpu")
+        for name, run in (
+                ("matvec_bsgs (log N 8, hoisted and not)", small_matvec),
+                (f"bootstrap (log N {BOOT_SMALL_LOG_N})",
+                 lambda d: [bootstrap_ring.run_bootstrap(
+                     d, BOOT_SMALL_LOG_N)[0]])):
+            (card, t_card), (host, t_host) = (
+                bench_common.synced(run, d, device=d) for d in (dev, cpu))
+            for a, b in zip(card, host):
+                if not (a.level == b.level and a.scale == b.scale
+                        and torch.equal(a.data.cpu(), b.data)):
+                    raise AssertionError(f"{name}: card and CPU differ")
+            print(f"  {name}: card and CPU torch.equal ({t_card:.2f} s on "
+                  f"the card, {t_host:.2f} s on the CPU)", flush=True)
 
     if set(ORDER) != set(common.KERNELS) or set(ORDER) != set(rows):
         raise AssertionError(f"kernel rows {sorted(rows)} against "

@@ -31,12 +31,11 @@ import argparse
 import json
 import os
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from repro_torch.benchmarks.common import row, timeit
+from repro_torch.benchmarks.common import RESULTS, row, timeit
 from repro_torch.core import modarith as ma
 from repro_torch.core import ntt as nttm
 from repro_torch.core.context import CkksContext, resolve_device
@@ -48,8 +47,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.keyswitch import FusedKeySwitch, keyswitch_staged
 
-RESULTS = Path(__file__).resolve().parents[3] / "build" / "repro_torch" / \
-    "results"
 
 
 def _emit(records, name, us, derived="", **extra):

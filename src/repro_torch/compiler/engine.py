@@ -114,6 +114,11 @@ def _default_cache_factory() -> Callable:
     return cache
 
 
+def decrypt_tolerance(params) -> float:
+    """Conservative decrypt-error bound for this parameter set."""
+    return 512.0 * params.n / 2.0 ** params.log_scale
+
+
 class CkksEngine:
     """Executes traces/schedules on encrypted slot batches on `device`
     (CUDA unless the caller passes ``device="cpu"``).
@@ -149,8 +154,7 @@ class CkksEngine:
 
     @property
     def tolerance(self) -> float:
-        """Conservative decrypt-error bound for this parameter set."""
-        return 512.0 * self.params.n / 2.0 ** self.params.log_scale
+        return decrypt_tolerance(self.params)
 
     # -- keys ----------------------------------------------------------------
 

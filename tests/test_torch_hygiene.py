@@ -8,6 +8,7 @@
   cannot be built (no nvcc) raises.
 """
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -56,6 +57,11 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch.kernels.bconv, repro_torch.kernels.ntt\n"
             "import repro_torch.kernels.ref\n"
             "import repro_torch.benchmarks.fig14_kernels\n"
+            "import repro_torch.core.linalg, repro_torch.core.bootstrap\n"
+            "import repro_torch.examples.quickstart\n"
+            "import repro_torch.examples.lola_mnist\n"
+            "import repro_torch.examples.helr_training\n"
+            "import repro_torch.examples.sorting\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -68,6 +74,10 @@ def test_import_leaves_jax_and_reference_out():
 def test_sources_import_no_reference():
     files = list(port_files())
     assert len(files) > 30
+    walked = {os.path.relpath(f, PKG) for f in files}
+    assert {"core/linalg.py", "core/bootstrap.py", "examples/__init__.py",
+            "examples/quickstart.py", "examples/lola_mnist.py",
+            "examples/helr_training.py", "examples/sorting.py"} <= walked
     for path in files + [CHIP_SMOKE]:
         bad = imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, (path, bad)
@@ -101,8 +111,43 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     for argv in (["--smoke"], ["--smoke", "--device", "cuda"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fig14_kernels.main(argv)
+    for name in ("quickstart", "lola_mnist", "helr_training", "sorting"):
+        example = importlib.import_module(f"repro_torch.examples.{name}")
+        for argv in ([], ["--device", "cuda"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                example.main(argv)
     assert CkksContext(params, device="cpu").device.type == "cpu"
     assert CiphertextBackend(params, device="cpu").use_kernels is False
+
+
+def test_deep_workloads_refuse_cpu_fallback(monkeypatch):
+    """Without CUDA, Bootstrapper and matvec_bsgs on a default-device
+    context raise (the context resolves the device once, and refuses a
+    missing CUDA device) instead of running on the CPU; on a context that
+    asks for the CPU they run there."""
+    import numpy as np
+    from repro_torch.core import linalg
+    from repro_torch.core.bootstrap import Bootstrapper
+    from repro_torch.core.ciphertext import Plaintext
+    from repro_torch.core.context import CkksContext
+    from repro_torch.core.encoder import CkksEncoder
+    from repro_torch.core.encryptor import CkksEncryptor
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = t_test_params(log_n=6, n_levels=2, dnum=1)
+    ctx = CkksContext(params, device="cpu")
+    enc, encr = CkksEncoder(ctx), CkksEncryptor(ctx, seed=1)
+    sk = encr.keygen()
+    scale = 2.0 ** params.log_scale
+    ct = encr.encrypt_sk(Plaintext(enc.encode(np.ones(params.slots), scale,
+                                              2), 2, scale), sk)
+    diags = {1: np.ones(params.slots)}
+    gks = encr.galois_keygen(sk, linalg.matvec_keys_needed(ctx, diags))
+    out = linalg.matvec_bsgs(ctx, ct, diags, gks, enc)
+    assert out.level == 1 and out.data.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Bootstrapper(CkksContext(params), enc, encr, sk)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        linalg.matvec_bsgs(CkksContext(params), ct, diags, gks, enc)
 
 
 def _kernel_calls(device, n=64):
