@@ -44,31 +44,50 @@ non-zero:
    --use-kernels --device cuda, paper parameters from start level 20,
    8 requests over helr/lola/matvec/poly): every workload's accuracy OK
    and K1-K4 launched;
-7. linalg — core/linalg at full width (paper_params_bootstrap, one
+7. fleet  — serve_fhe on a fleet of FLEET_DEVICES = 2 ciphertext devices
+   (--fleet 2 --router least_loaded, the serve phase's other flags), each
+   device with its own engine, keys and kernel tables on the one card:
+   every workload's accuracy OK, each device with at least one batch and
+   busy time, K1-K4 launched (launches per device printed), the devices'
+   relin keys torch.equal, every batch padded to --max-batch, the trace
+   valid with one track per device, the OpenMetrics text parsed;
+8. pim    — serve_fhe --backend pim --pim-preset fhemem --fleet 4
+   --router least_loaded --continuous-batching --preempt --requests 200,
+   payloads encrypted on the card: 200 requests completed, trace and
+   metrics valid, no kernel launched; and the reference's anchor, the
+   flat preset's PimBackend within 1 % of AnalyticBackend on every
+   workload's schedule at paper parameters;
+9. linalg — core/linalg at full width (paper_params_bootstrap, one
    ciphertext at level 20): matvec_bsgs over a banded 16-diagonal matrix
    with and without hoisting (6 Galois keys), a degree-31 Chebyshev
    series and HELR's degree-3 sigmoid, each decrypt within the engine's
    tolerance of numpy on the plaintext, each call's time and the keygen
    time printed;
-8. bootstrap — core/bootstrap at tests/test_bootstrap.py's parameters on
+10. bootstrap — core/bootstrap at tests/test_bootstrap.py's parameters on
    the ring 2^BOOT_LOG_N = 2^9 (log N 16 is out of reach of the
    reference's dense n x n embedding inverse, and above 2^9 its error
    passes the test's bound): a level-0 ciphertext refreshed to level >= 2
    with max error < 0.05, the setup and each stage timed;
-9. card against CPU — one matvec_bsgs (both modes, log N 8) and one
+11. card against CPU — one matvec_bsgs (both modes, log N 8) and one
    bootstrap (log N 7) on the card and on the CPU from the same seeds:
    torch.equal. The CPU tests hold the CPU route to the JAX package.
 
-The deep workloads (7-9) keyswitch through the library route, as the
-reference does, and launch no kernel: their counts must stay 0.
-Launch counts are set to 0 just before each of the staged, fig14,
-serve, linalg and bootstrap paths and read just after. Then a JSON line
-of per-kernel numbers (all ten kernel rows, launches per path), the
-card's name and power limit from nvidia-smi, and the final status line.
+The deep workloads (9-11) keyswitch through the library route, as the
+reference does, and launch no kernel: their counts must stay 0, as must
+the pim path's. Launch counts are set to 0 just before each of the
+staged, fig14, serve, fleet, pim, linalg and bootstrap paths and read
+just after. The fleet and pim phases write their trace and metrics
+files under build/repro_torch/chip_smoke/ and keep the event log in
+memory. Then a JSON line of per-kernel numbers (all ten kernel rows,
+launches per path), the card's name and power limit from nvidia-smi, and
+the final status line.
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
+import gc
+import io
 import json
 import os
 import statistics
@@ -109,6 +128,11 @@ SIGMOID3 = (0.5, 0.197, 0.0, -0.004)    # HELR's degree-3 sigmoid
 # parameters keep its 0.05 error bound (benchmarks/bootstrap_ring.py)
 BOOT_LOG_N = 9
 BOOT_SMALL_LOG_N = 7  # tests/test_bootstrap.py's ring, card against CPU
+
+FLEET_DEVICES = 2   # the fleet phase's ciphertext devices on one card
+PIM_DEVICES = 4     # the pim phase's simulated FHEmem devices
+PIM_REQUESTS = 200
+OUT_DIR = os.path.join(ROOT, "build", "repro_torch", "chip_smoke")
 
 # kernels each driven path must launch, and the path whose count is a
 # kernel's `launches` in the JSON line
@@ -284,6 +308,182 @@ def linalg_phase(dev, params, level):
               f"max |err| {err:.3e} (tolerance {tol:.3e})", flush=True)
         if not err < tol:
             raise AssertionError(f"{name} error {err} over {tol}")
+
+
+def fleet_phase(torch, dev, smoke=False):
+    """serve_fhe's ciphertext fleet of FLEET_DEVICES devices on `dev`
+    (--smoke: the CPU rehearsal's size). Returns the path's launch counts;
+    raises if a check fails. The fleet is freed before it returns."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve_fhe
+    from repro_torch.obs import parse_openmetrics, validate_file
+    from repro_torch.runtime.ciphertext_backend import CiphertextBackend
+    os.makedirs(OUT_DIR, exist_ok=True)
+    trace = os.path.join(OUT_DIR, "fleet.json")
+    prom = os.path.join(OUT_DIR, "fleet.prom")
+    args = serve_fhe.parse_args(
+        ["--backend", "ciphertext", "--use-kernels", "--device", dev.type,
+         "--fleet", str(FLEET_DEVICES), "--router", "least_loaded",
+         "--requests", "8", "--deadline-ms", "0", "--cache-mb", "4096",
+         "--trace-out", trace, "--metrics-out", prom, "--log-json"]
+        + (["--smoke"] if smoke else []))
+    # launches of each device's batches (warmup included), read around
+    # the backend's execute; the counts themselves move only in the
+    # kernel wrappers
+    by_backend = collections.defaultdict(collections.Counter)
+    execute = CiphertextBackend.execute
+
+    def counted(self, *a, **kw):
+        before = {k: v.launches for k, v in common.KERNELS.items()}
+        try:
+            return execute(self, *a, **kw)
+        finally:
+            for k, v in common.KERNELS.items():
+                by_backend[id(self)][k] += v.launches - before.get(k, 0)
+
+    log = io.StringIO()
+    if dev.type == "cuda":
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    CiphertextBackend.execute = counted
+    try:
+        res = serve_fhe.serve(args, log_stream=log)
+    finally:
+        CiphertextBackend.execute = execute
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in common.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    fleet, m = res.executor, res.executor.metrics
+    served = sorted(m.decrypt_error)
+    if res.accuracy_ok is not True or served != sorted(serve_fhe.WORKLOADS):
+        raise AssertionError(f"fleet accuracy {res.accuracy_ok}, "
+                             f"workloads served {served}")
+    if m.count("requests_completed") != 8:
+        raise AssertionError(f"fleet completed "
+                             f"{m.count('requests_completed')} of 8")
+    batches = collections.Counter(
+        s.track for s in m.tracer.store.spans if s.name.startswith("batch:"))
+    keys = [d.backend.engine.rk.data for d in fleet.devices]
+    for d in fleet.devices:
+        track = f"device:{d.device_id}"
+        if batches[track] < 1 or not m.device_busy_s[d.device_id] > 0:
+            raise AssertionError(f"{track}: {batches[track]} batches, busy "
+                                 f"{m.device_busy_s[d.device_id]} s")
+        if d.backend.pad_batch_to != args.max_batch:
+            raise AssertionError(f"{track} pads to {d.backend.pad_batch_to}"
+                                 f", not --max-batch {args.max_batch}")
+        if not torch.equal(keys[0], d.backend.engine.rk.data):
+            raise AssertionError(f"{track}'s relin key differs from "
+                                 f"device:0's")
+        print(f"  {track}: {batches[track]} batches, busy "
+              f"{m.device_busy_s[d.device_id]:.2f} s, launches "
+              f"{ {k: by_backend[id(d.backend)][k] for k in SERVE_KERNELS} }",
+              flush=True)
+    errors = validate_file(trace)
+    with open(trace) as f:
+        obj = json.load(f)
+    tracks = sorted(e["args"]["name"] for e in obj["traceEvents"]
+                    if e["ph"] == "M" and e["name"] == "thread_name"
+                    and e["pid"] == 1)
+    if errors or tracks != [str(i) for i in range(FLEET_DEVICES)]:
+        raise AssertionError(f"fleet trace: {errors}, device tracks "
+                             f"{tracks}")
+    with open(prom) as f:
+        samples, errors = parse_openmetrics(f.read())
+    if errors or not samples:
+        raise AssertionError(f"fleet metrics: {errors}")
+    n_events = len(log.getvalue().splitlines())
+    del fleet, keys, d
+    print(f"fleet: {FLEET_DEVICES} devices, relin keys torch.equal, "
+          f"batches padded to {args.max_batch}, trace "
+          f"{len(obj['traceEvents'])} events, {len(samples)} OpenMetrics "
+          f"samples, {n_events} event-log lines", flush=True)
+    print(f"fleet: warmup {res.warmup_s:.2f} s, p50 latency "
+          f"{m.request_latency.p50 * 1e3:.1f} ms, throughput "
+          f"{m.throughput_rps():.3f} req/s, "
+          f"{m.count('requests_completed')} requests completed in "
+          f"{sum(batches.values())} batches, peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB, launches {launches}", flush=True)
+    del res, m
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        print(f"fleet: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+              f"allocated after the fleet is freed, "
+              f"{mem_before / 2 ** 30:.2f} GiB before it was built",
+              flush=True)
+    return launches
+
+
+def pim_phase(dev, smoke=False):
+    """serve_fhe --backend pim on a fleet of PIM_DEVICES, payloads
+    encrypted on `dev`, then the flat preset's anchor against the
+    analytic backend at the same parameters."""
+    from repro_torch.launch import serve_fhe
+    from repro_torch.obs import parse_openmetrics, validate_file
+    from repro_torch.pim import PimBackend, memory_model
+    from repro_torch.runtime.batcher import Batch
+    from repro_torch.runtime.executor import AnalyticBackend
+    from repro_torch.runtime.metrics import MetricsRegistry
+    os.makedirs(OUT_DIR, exist_ok=True)
+    trace = os.path.join(OUT_DIR, "pim.json")
+    prom = os.path.join(OUT_DIR, "pim.prom")
+    args = serve_fhe.parse_args(
+        ["--backend", "pim", "--pim-preset", "fhemem", "--fleet",
+         str(PIM_DEVICES), "--router", "least_loaded",
+         "--continuous-batching", "--preempt", "--requests",
+         str(PIM_REQUESTS), "--device", dev.type, "--trace-out", trace,
+         "--metrics-out", prom, "--log-json"]
+        + (["--smoke"] if smoke else []))
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    res = serve_fhe.serve(args, log_stream=log)
+    wall = time.perf_counter() - t0
+    m = res.executor.metrics
+    on = {r.payload.data.device.type for r in res.arrivals}
+    if on != {dev.type}:
+        raise AssertionError(f"pim payloads encrypted on {on}")
+    done = m.count("requests_completed")
+    if done != args.requests:
+        raise AssertionError(f"pim completed {done} of {args.requests}")
+    with open(prom) as f:
+        samples, errors = parse_openmetrics(f.read())
+    errors += validate_file(trace)
+    if errors or not samples:
+        raise AssertionError(f"pim trace/metrics: {errors}")
+    print(f"pim: {done} requests on {PIM_DEVICES} devices in {wall:.2f} s "
+          f"(payloads encrypted on {dev.type}), virtual p50 "
+          f"{m.request_latency.p50 * 1e3:.3f} ms, throughput "
+          f"{m.throughput_rps():.1f} req/s, {m.count('preemptions')} "
+          f"preemptions, {len(res.executor.metrics.tracer.store)} spans, "
+          f"{len(samples)} OpenMetrics samples, "
+          f"{len(log.getvalue().splitlines())} event-log lines", flush=True)
+    # the flat preset's hardware model bills like the analytic cost model
+    mem = memory_model("flat")
+    ex = serve_fhe.build_executor(
+        res.executor.params, mem, backend_name="pim", max_batch=8,
+        max_wait_s=2e-3, cache_bytes=0, start_level=20 if not smoke else 7,
+        device=dev)
+    worst = 0.0
+    for name, w in ex.workloads.items():
+        sched = ex.compile_cache.get_schedule(
+            w.trace, ex.params, ex.mem, ex.mapper, pass_config=ex.pass_config)
+        for b in (1, 8):
+            t_pim, t_an = (backend.execute(
+                sched, Batch(name, [], [[] for _ in range(b)], 0.0),
+                key_cache=None, metrics=MetricsRegistry(mem.n_partitions),
+                workload=name)
+                for backend in (PimBackend(preset="flat"),
+                                AnalyticBackend(mem)))
+            rel = abs(t_pim - t_an) / t_an
+            worst = max(worst, rel)
+            if not rel <= 0.01:
+                raise AssertionError(f"pim flat {name} b={b}: {t_pim} s "
+                                     f"against analytic {t_an} s")
+    print(f"pim: flat preset within {worst:.3e} (relative) of the analytic "
+          f"backend on {sorted(ex.workloads)} at b = 1 and 8", flush=True)
 
 
 def main() -> int:
@@ -779,6 +979,10 @@ def main() -> int:
         print(f"serve: op execution (device-synchronised stages) "
               f"{stage_s:.2f} s of {service_s:.2f} s batch service; the "
               f"rest is packing, encryption, decryption and decode")
+        if res.executor.backend.pad_batch_to != BATCH:
+            raise AssertionError(f"serve pads to "
+                                 f"{res.executor.backend.pad_batch_to}, "
+                                 f"not {BATCH}")
         # the host side of a batch, alone: encrypt and decode 8 rows
         eng = res.executor.backend.engine
         t0 = time.perf_counter()
@@ -799,16 +1003,30 @@ def main() -> int:
               f"launches {launches}", flush=True)
 
     del res, eng, cb
+    gc.collect()
     torch.cuda.empty_cache()
 
     def no_kernel_launched(path):
         """The deep workloads keyswitch through the library route of
-        core/ops, as the reference does: no kernel of K1-K7 may launch."""
+        core/ops, as the reference does, and the pim path simulates: no
+        kernel of K1-K7 may launch."""
         paths[path] = launched = {
             k: v.launches for k, v in common.KERNELS.items()}
         if any(launched.values()):
             raise AssertionError(f"kernels launched on the {path} path: "
                                  f"{launched}")
+
+    with Phase("fleet"):
+        paths["fleet"] = launches = fleet_phase(torch, dev)
+        missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the fleet "
+                                 f"path: {missing}")
+
+    with Phase("pim"):
+        common.reset_launches()
+        pim_phase(dev)
+        no_kernel_launched("pim")
 
     with Phase("linalg"):
         common.reset_launches()

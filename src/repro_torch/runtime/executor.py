@@ -1,7 +1,7 @@
 """Round-based serving engine: drains the slot batcher through a
 pipeline backend behind one interface.
 
-Two backends, one contract (``execute(schedule, batch, ...) -> seconds``):
+Three backends, one contract (``execute(schedule, batch, ...) -> seconds``):
 
 * ``AnalyticBackend`` — the MemoryModel cost model (core/pipeline.py)
   driven as a discrete-event simulation on a virtual clock. Stage
@@ -12,9 +12,14 @@ Two backends, one contract (``execute(schedule, batch, ...) -> seconds``):
   CKKS keys and every schedule op runs as one batched pass over the
   ciphertext stack, with decrypt-side accuracy recorded per workload.
   Wall clock, per-stage measured times.
+* ``PimBackend`` (repro_torch/pim/backend.py) — discrete-event
+  simulation of the hierarchical FHEmem hardware model: schedules are
+  lowered to a bank-level instruction stream (repro_torch.pim.lower) and
+  replayed on a virtual clock; the degenerate flat arch reproduces
+  AnalyticBackend stage times exactly.
 
-The reference's ``mesh`` and ``pim`` backends are not ported yet;
-`resolve_backend` names them and raises.
+The reference's ``mesh`` backend is not ported yet; `resolve_backend`
+names it and raises.
 
 ``PipelinedExecutor`` owns the event loop: admit arrivals → poll the
 batcher → compile (memoized) → execute → record completions.
@@ -192,33 +197,46 @@ def record_request_completion(metrics: MetricsRegistry, r: Request,
     return True
 
 
-BACKEND_NAMES = ("analytic", "ciphertext")
-NOT_YET_PORTED = ("mesh", "pim")
+BACKEND_NAMES = ("analytic", "ciphertext", "pim")
+NOT_YET_PORTED = ("mesh",)
 
 
 def resolve_backend(name: str, params: CkksParams, mem: MemoryModel,
                     use_kernels: Optional[bool] = None,
-                    device=None):
-    """Build a backend from its CLI/ctor name: ``analytic`` (cost model)
-    or ``ciphertext`` (real encrypted execution via
-    repro_torch.compiler.engine on `device`, CUDA unless told otherwise).
+                    device=None, verify: bool = False):
+    """Build a backend from its CLI/ctor name: ``analytic`` (cost model),
+    ``ciphertext`` (real encrypted execution via
+    repro_torch.compiler.engine on `device`, CUDA unless told otherwise)
+    or ``pim`` (discrete-event simulation of the hierarchical FHEmem
+    hardware model, repro_torch.pim — the arch is recovered from `mem`: a
+    preset projection maps back to its preset, anything else is wrapped
+    in a degenerate arch billing exactly like AnalyticBackend).
 
     ``use_kernels`` (ciphertext backend only) routes keyswitch + modmul
     through the hand-written CUDA kernels; None keeps the backend's own
-    default (on iff its device is CUDA)."""
+    default (on iff its device is CUDA). ``verify`` (pim backend only)
+    asks for the static hazard analyzer, which is not ported yet: it
+    raises."""
     if name == "analytic":
         return AnalyticBackend(mem)
     if name == "ciphertext":
         from repro_torch.runtime.ciphertext_backend import CiphertextBackend
         return CiphertextBackend(params, use_kernels=use_kernels,
                                  device=device)
+    if name == "pim":
+        from repro_torch.pim.backend import resolve_pim_backend
+        return resolve_pim_backend(mem, verify=verify)
     if name in NOT_YET_PORTED:
         raise NotImplementedError(
             f"backend {name!r} is not yet ported to repro_torch; use the "
             f"JAX package (repro.runtime.executor) for it")
+    from repro_torch.pim.arch import PRESETS
     raise ValueError(
         f"unknown backend {name!r}: valid backends are "
-        f"{', '.join(repr(n) for n in BACKEND_NAMES)}")
+        f"{', '.join(repr(n) for n in BACKEND_NAMES)}; the 'pim' "
+        f"backend additionally takes a hardware preset out of "
+        f"{', '.join(repr(p) for p in sorted(PRESETS))} "
+        f"(serve_fhe --pim-preset / repro_torch.pim.arch.get_arch)")
 
 
 class PipelinedExecutor:
@@ -226,7 +244,7 @@ class PipelinedExecutor:
     on a virtual clock (event times from the analytic backend) or wall
     clock deltas (ciphertext backend) — the loop is the same either
     way. `backend` may be an instance or a name ("analytic" |
-    "ciphertext")."""
+    "ciphertext" | "pim")."""
 
     def __init__(self, params: CkksParams, mem: MemoryModel,
                  backend=None, policy: Optional[BatchPolicy] = None,

@@ -64,3 +64,56 @@ class Pair:
         """The port's decrypt and decode of one ciphertext."""
         return self.tcode.decode(self.tenc.decrypt(tct, self.tsk).data,
                                  tct.scale, tct.level)
+
+
+# ---------------------------------------------------------------------------
+# the port's twin of tests/_obs_scenario.py: the same parameters, memory
+# model, workloads and arrival stream, built from repro_torch
+# ---------------------------------------------------------------------------
+
+def obs_executor(backend="analytic", cache_mb: int = 64, max_batch: int = 4):
+    """tests/_obs_scenario.build_executor on the port (analytic or pim
+    backend: neither touches a torch device)."""
+    from repro_torch.compiler import PassConfig
+    from repro_torch.core.params import test_params
+    from repro_torch.core.pipeline import MemoryModel
+    from repro_torch.runtime import (BatchPolicy, KeyCache,
+                                     PipelinedExecutor)
+    from repro_torch.runtime.workloads import (HELR_CONSTS, LOLA_CONSTS,
+                                               lola_infer, make_helr_iter,
+                                               make_matvec, matvec_consts)
+    params = test_params(log_n=10, n_levels=8, dnum=2)
+    mem = MemoryModel(n_partitions=4, partition_bytes=8 * 2 ** 20)
+    start = 7
+    policy = BatchPolicy(slots_per_ct=params.slots, max_batch=max_batch,
+                         max_wait_s=2e-3)
+    kc = (KeyCache(cache_mb * 2 ** 20, load_bw=mem.load_bw)
+          if cache_mb else None)
+    ex = PipelinedExecutor(params, mem, backend=backend, policy=policy,
+                           key_cache=kc,
+                           pass_config=PassConfig(start_level=start))
+    ex.register("helr", make_helr_iter(), 2, const_names=HELR_CONSTS,
+                start_level=start)
+    ex.register("lola", lola_infer, 1, const_names=LOLA_CONSTS,
+                start_level=start)
+    ex.register("matvec16", make_matvec(16), 1,
+                const_names=matvec_consts(16), start_level=start)
+    return ex
+
+
+def obs_arrivals(ex, n_requests: int = 48, rate_rps: float = 3000.0,
+                 seed: int = 11, deadline_s: float = 0.05,
+                 max_slots: int = 64):
+    """tests/_obs_scenario.make_arrivals on the port's Request."""
+    from repro_torch.runtime import Request
+    rng = np.random.default_rng(seed)
+    names = sorted(ex.workloads)
+    out, t = [], 0.0
+    for i in range(n_requests):
+        t += float(rng.exponential(1.0 / rate_rps))
+        out.append(Request(
+            ex.next_request_id(), tenant=f"tenant{i % 3}",
+            workload=names[i % len(names)], arrival_s=t,
+            slots_needed=int(rng.integers(1, max_slots + 1)),
+            deadline_s=t + deadline_s if i % 3 else None))
+    return out

@@ -62,6 +62,7 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch.examples.lola_mnist\n"
             "import repro_torch.examples.helr_training\n"
             "import repro_torch.examples.sorting\n"
+            "import repro_torch.obs, repro_torch.pim, repro_torch.fleet\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -77,7 +78,12 @@ def test_sources_import_no_reference():
     walked = {os.path.relpath(f, PKG) for f in files}
     assert {"core/linalg.py", "core/bootstrap.py", "examples/__init__.py",
             "examples/quickstart.py", "examples/lola_mnist.py",
-            "examples/helr_training.py", "examples/sorting.py"} <= walked
+            "examples/helr_training.py", "examples/sorting.py",
+            "obs/log.py", "obs/telemetry.py", "obs/openmetrics.py",
+            "obs/perfetto.py", "obs/critical_path.py", "pim/__init__.py",
+            "pim/arch.py", "pim/isa.py", "pim/layout.py", "pim/lower.py",
+            "pim/backend.py", "fleet/__init__.py", "fleet/device.py",
+            "fleet/router.py", "fleet/scheduler.py"} <= walked
     for path in files + [CHIP_SMOKE]:
         bad = imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, (path, bad)
@@ -105,7 +111,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
                  lambda: CkksEngine(params, device="cuda")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
-    for argv in (["--smoke"], ["--smoke", "--backend", "ciphertext"]):
+    for argv in (["--smoke"], ["--smoke", "--backend", "ciphertext"],
+                 ["--smoke", "--fleet", "2", "--backend", "ciphertext"],
+                 ["--smoke", "--fleet", "4", "--backend", "pim"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_fhe.main(argv)
     for argv in (["--smoke"], ["--smoke", "--device", "cuda"]):
