@@ -41,9 +41,10 @@ non-zero:
    the card: its >= 4x dispatch assertion and oracle checks hold, and
    K4-K7 launched;
 6. serve  — the port's serve_fhe main path (--backend ciphertext
-   --use-kernels --device cuda, paper parameters from start level 20,
-   8 requests over helr/lola/matvec/poly): every workload's accuracy OK
-   and K1-K4 launched;
+   --use-kernels --device cuda --verify, paper parameters from start
+   level 20, 8 requests over helr/lola/matvec/poly): every workload's
+   accuracy OK, K1-K4 launched, and the static verifier's sweep of every
+   compiled schedule with 0 findings (its wall ms printed);
 7. fleet  — serve_fhe on a fleet of FLEET_DEVICES = 2 ciphertext devices
    (--fleet 2 --router least_loaded, the serve phase's other flags), each
    device with its own engine, keys and kernel tables on the one card:
@@ -52,32 +53,47 @@ non-zero:
    relin keys torch.equal, every batch padded to --max-batch, the trace
    valid with one track per device, the OpenMetrics text parsed;
 8. pim    — serve_fhe --backend pim --pim-preset fhemem --fleet 4
-   --router least_loaded --continuous-batching --preempt --requests 200,
-   payloads encrypted on the card: 200 requests completed, trace and
-   metrics valid, no kernel launched; and the reference's anchor, the
+   --router least_loaded --continuous-batching --preempt --requests 200
+   --verify, payloads encrypted on the card: 200 requests completed,
+   trace and metrics valid, every schedule and lowered program verified
+   with 0 findings, no kernel launched; and the reference's anchor, the
    flat preset's PimBackend within 1 % of AnalyticBackend on every
    workload's schedule at paper parameters;
-9. linalg — core/linalg at full width (paper_params_bootstrap, one
+9. verify — the lint gate (python -m repro_torch.analysis.lint --prove)
+   at paper parameters: every artifact (trace, schedule, lowered PIM
+   program of each workload, pass configuration, preset and mapper)
+   with 0 errors, every rule of the catalogue proven to fire, artifacts
+   and verify ms printed; host work, no kernel launched;
+10. mesh  — serve_fhe --backend mesh --device cuda at paper parameters
+   (the serve phase's 8 requests): every request completed, every
+   batch's (8, 32768) output on the card, on an nccl group of world size
+   1 that the serve starts; on that mesh distributed_bconv (ring and
+   all-gather) at S = 6 -> D = 21, N = 65536 with 3221225473 among the
+   destinations, torch.equal to core.rns.bconv and each timed, and 8
+   pipeline rounds within rtol 1e-6 of the sequential composition; the
+   process group is destroyed at the end; no kernel launched;
+11. linalg — core/linalg at full width (paper_params_bootstrap, one
    ciphertext at level 20): matvec_bsgs over a banded 16-diagonal matrix
    with and without hoisting (6 Galois keys), a degree-31 Chebyshev
    series and HELR's degree-3 sigmoid, each decrypt within the engine's
    tolerance of numpy on the plaintext, each call's time and the keygen
    time printed;
-10. bootstrap — core/bootstrap at tests/test_bootstrap.py's parameters on
+12. bootstrap — core/bootstrap at tests/test_bootstrap.py's parameters on
    the ring 2^BOOT_LOG_N = 2^9 (log N 16 is out of reach of the
    reference's dense n x n embedding inverse, and above 2^9 its error
    passes the test's bound): a level-0 ciphertext refreshed to level >= 2
    with max error < 0.05, the setup and each stage timed;
-11. card against CPU — one matvec_bsgs (both modes, log N 8) and one
+13. card against CPU — one matvec_bsgs (both modes, log N 8) and one
    bootstrap (log N 7) on the card and on the CPU from the same seeds:
    torch.equal. The CPU tests hold the CPU route to the JAX package.
 
-The deep workloads (9-11) keyswitch through the library route, as the
+The deep workloads (11-13) keyswitch through the library route, as the
 reference does, and launch no kernel: their counts must stay 0, as must
-the pim path's. Launch counts are set to 0 just before each of the
-staged, fig14, serve, fleet, pim, linalg and bootstrap paths and read
-just after. The fleet and pim phases write their trace and metrics
-files under build/repro_torch/chip_smoke/ and keep the event log in
+the pim, verify and mesh paths'. Launch counts are set to 0 just before
+each of the staged, fig14, serve, fleet, pim, verify, mesh, linalg and
+bootstrap paths and read just after. The fleet and pim phases write their trace and metrics
+files (the verify phase its lint JSON lines) under
+build/repro_torch/chip_smoke/ and keep the event log in
 memory. Then a JSON line of per-kernel numbers (all ten kernel rows,
 launches per path), the card's name and power limit from nvidia-smi, and
 the final status line.
@@ -435,7 +451,7 @@ def pim_phase(dev, smoke=False):
          str(PIM_DEVICES), "--router", "least_loaded",
          "--continuous-batching", "--preempt", "--requests",
          str(PIM_REQUESTS), "--device", dev.type, "--trace-out", trace,
-         "--metrics-out", prom, "--log-json"]
+         "--metrics-out", prom, "--log-json", "--verify"]
         + (["--smoke"] if smoke else []))
     log = io.StringIO()
     t0 = time.perf_counter()
@@ -448,6 +464,7 @@ def pim_phase(dev, smoke=False):
     done = m.count("requests_completed")
     if done != args.requests:
         raise AssertionError(f"pim completed {done} of {args.requests}")
+    check_verified("pim", serve_fhe, res)
     with open(prom) as f:
         samples, errors = parse_openmetrics(f.read())
     errors += validate_file(trace)
@@ -484,6 +501,155 @@ def pim_phase(dev, smoke=False):
                                      f"against analytic {t_an} s")
     print(f"pim: flat preset within {worst:.3e} (relative) of the analytic "
           f"backend on {sorted(ex.workloads)} at b = 1 and 8", flush=True)
+
+
+def check_verified(name, serve_fhe, res):
+    """A --verify serve swept its schedules (and lowered programs) with
+    no finding; prints the sweep's verify wall time."""
+    n_sched, n_prog, found, wall = serve_fhe.verify_summary(res.executor)
+    print(f"{name}: verify swept {n_sched} schedule(s) + {n_prog} lowered "
+          f"program(s), {found} finding(s), {wall * 1e3:.1f} ms verify "
+          f"wall", flush=True)
+    if found or not n_sched:
+        raise AssertionError(f"{name}: verify found {found} finding(s) "
+                             f"over {n_sched} schedule(s)")
+
+
+def verify_phase(smoke=False):
+    """The lint gate, `python -m repro_torch.analysis.lint --prove`, at
+    its default paper parameters (--smoke: the CPU rehearsal's point):
+    every artifact clean and every rule of the catalogue proven live on a
+    seeded mutation. Host work only."""
+    from repro_torch.analysis import RULES, lint
+    os.makedirs(OUT_DIR, exist_ok=True)
+    jsonl = os.path.join(OUT_DIR, "lint.jsonl")
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    t0 = time.perf_counter()
+    rc = lint.main(["--prove", "--jsonl", jsonl]
+                   + (["--smoke"] if smoke else []))
+    wall = time.perf_counter() - t0
+    with open(jsonl) as f:
+        reports = [json.loads(line) for line in f]
+    n_err = sum(r["n_errors"] for r in reports)
+    n_warn = sum(r["n_warnings"] for r in reports)
+    v_wall = sum(r["wall_s"] for r in reports)
+    print(f"verify: lint sweep at {'smoke' if smoke else 'paper'} "
+          f"parameters: {len(reports)} artifacts, {n_err} errors, {n_warn} "
+          f"warnings, {v_wall * 1e3:.1f} ms verify wall; "
+          f"{len(RULES)} rules proven; {wall:.2f} s with compile, lowering "
+          f"and the proof", flush=True)
+    if rc != 0 or n_err or not reports:
+        raise AssertionError(f"lint exit {rc}, {n_err} errors over "
+                             f"{len(reports)} artifacts")
+
+
+def mesh_phase(torch, dev, smoke=False):
+    """serve_fhe --backend mesh on `dev` (paper parameters; --smoke: the
+    CPU rehearsal's point), then, on the world-size-1 mesh that serve
+    started (nccl on the card), distributed_bconv in both schedules at the
+    ModUp shape of level 20 against core.rns.bconv, and a pipeline of
+    rounds against the sequential composition. The process group is
+    destroyed at the end, pass or fail."""
+    import torch.distributed as dist
+    from repro_torch.core import rns
+    from repro_torch.core.context import CkksContext
+    from repro_torch.core.params import test_params
+    from repro_torch.fhe_dist.collective_bconv import (bconv_tables_device,
+                                                       distributed_bconv)
+    from repro_torch.fhe_dist.pipeline_exec import run_load_save_pipeline
+    from repro_torch.launch import serve_fhe
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.executor import MeshBackend
+    args = serve_fhe.parse_args(
+        ["--backend", "mesh", "--device", dev.type, "--requests", "8",
+         "--deadline-ms", "0", "--cache-mb", "4096"]
+        + (["--smoke"] if smoke else []))
+    outputs = []
+    execute = MeshBackend.execute
+
+    def recorded(self, schedule, batch, **kw):
+        dt = execute(self, schedule, batch, **kw)
+        out = batch.outputs
+        outputs.append((out.device.type, tuple(out.shape),
+                        bool(torch.isfinite(out).all())))
+        return dt
+
+    MeshBackend.execute = recorded
+    try:
+        res = serve_fhe.serve(args)
+    finally:
+        MeshBackend.execute = execute
+    try:
+        m, ex = res.executor.metrics, res.executor
+        slots = ex.params.slots
+        done = m.count("requests_completed")
+        want_out = (dev.type, (BATCH, slots), True)
+        if done != 8 or not outputs or set(outputs) != {want_out}:
+            raise AssertionError(f"mesh serve: {done} of 8 completed, "
+                                 f"outputs {sorted(set(outputs))}")
+        backend = dist.get_backend()
+        print(f"mesh: serve of {done} requests over {len(outputs)} "
+              f"executions (warmup included) on a {backend} group of "
+              f"{dist.get_world_size()}, outputs ({BATCH}, {slots}) float32 "
+              f"on {dev.type}; warmup {res.warmup_s:.2f} s, p50 latency "
+              f"{m.request_latency.p50 * 1e3:.3f} ms, throughput "
+              f"{m.throughput_rps():.1f} req/s", flush=True)
+
+        # the serve's parameters; the rehearsal's --smoke point has no
+        # level 20, so it takes the paper's depth at log N 10
+        params = (test_params(log_n=10, n_levels=23, dnum=4) if smoke
+                  else ex.params)
+        ctx = CkksContext(params, dev)
+        digit = params.digit_indices(LEVEL)[0]
+        dst = [i for i in list(range(LEVEL + 1)) + ctx.p_idx()
+               if i not in digit]
+        if not smoke and Q32 not in [ctx.primes[i] for i in dst]:
+            raise AssertionError(f"{Q32} is not among the destinations")
+        rng = np.random.default_rng(11)
+        v = torch.from_numpy(np.stack([
+            rng.integers(0, ctx.primes[i], size=ctx.n) for i in digit])).to(
+                dev)
+        tabs = bconv_tables_device(ctx, digit, dst)
+        mesh = make_host_mesh(1, 1, device=dev)
+        plain = rns.bconv(v, ctx.bconv_tables(digit, dst))
+
+        def ms(fn):
+            return cuda_ms(torch, fn) if dev.type == "cuda" else float("nan")
+
+        times = {"rns.bconv": ms(lambda: rns.bconv(
+            v, ctx.bconv_tables(digit, dst)))}
+        for variant in ("ring", "allgather"):
+            got = distributed_bconv(v, *tabs, mesh, variant=variant,
+                                    gather=True)
+            if not torch.equal(got, plain):
+                raise AssertionError(f"distributed_bconv ({variant}) "
+                                     f"differs from rns.bconv")
+            times[variant] = ms(lambda: distributed_bconv(
+                v, *tabs, mesh, variant=variant, gather=True))
+        top = max(ctx.primes[i] for i in dst)
+        print(f"mesh: distributed_bconv S = {len(digit)} -> D = {len(dst)}, "
+              f"N = {ctx.n} (destinations up to {top}), world size 1 on "
+              f"{backend}: ring and allgather torch.equal "
+              f"to rns.bconv; ring {times['ring']:.4f} ms, allgather "
+              f"{times['allgather']:.4f} ms, rns.bconv "
+              f"{times['rns.bconv']:.4f} ms a call", flush=True)
+
+        x = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(BATCH, 16, 32)).astype(np.float32)).to(dev)
+        fns = [lambda t, k=k: t * (1 + 0.01 * k) + k for k in range(8)]
+        got = run_load_save_pipeline([[f] for f in fns], x, mesh)
+        want = x
+        for f in fns:
+            want = f(want)
+        if not torch.allclose(got, want, rtol=1e-6, atol=0):
+            raise AssertionError("pipeline rounds differ from the "
+                                 "sequential composition")
+        print(f"mesh: {len(fns)} pipeline rounds of {BATCH} microbatches "
+              f"on {dev.type} within rtol 1e-6 of the sequential "
+              f"composition", flush=True)
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -953,7 +1119,7 @@ def main() -> int:
     with Phase("serve"):
         args = serve_fhe.parse_args([
             "--backend", "ciphertext", "--use-kernels", "--device", "cuda",
-            "--requests", "8", "--deadline-ms", "0",
+            "--requests", "8", "--deadline-ms", "0", "--verify",
             # the default 256 MiB key cache cannot pin two 120 MiB evks
             # of this parameter set (the reference refuses the same way)
             "--cache-mb", "4096"])
@@ -974,6 +1140,7 @@ def main() -> int:
         if missing:
             raise AssertionError(f"kernels never launched on the serve "
                                  f"path: {missing}")
+        check_verified("serve", serve_fhe, res)
         stage_s = sum(m.occupancy.busy_s)     # serve batches' stages
         service_s = m.batch_service.mean * m.batch_service.count
         print(f"serve: op execution (device-synchronised stages) "
@@ -1008,8 +1175,9 @@ def main() -> int:
 
     def no_kernel_launched(path):
         """The deep workloads keyswitch through the library route of
-        core/ops, as the reference does, and the pim path simulates: no
-        kernel of K1-K7 may launch."""
+        core/ops, as the reference does, the pim path simulates, and the
+        verify and mesh paths are host analysis and torch ops: no kernel
+        of K1-K7 may launch."""
         paths[path] = launched = {
             k: v.launches for k, v in common.KERNELS.items()}
         if any(launched.values()):
@@ -1027,6 +1195,18 @@ def main() -> int:
         common.reset_launches()
         pim_phase(dev)
         no_kernel_launched("pim")
+
+    with Phase("verify"):
+        common.reset_launches()
+        verify_phase()
+        no_kernel_launched("verify")
+
+    with Phase("mesh"):
+        common.reset_launches()
+        mesh_phase(torch, dev)
+        torch.cuda.synchronize()
+        no_kernel_launched("mesh")
+        torch.cuda.empty_cache()
 
     with Phase("linalg"):
         common.reset_launches()

@@ -17,7 +17,7 @@ guarantees are enforced per pass:
   analytic seconds. `BootstrapInsertion` is exempt: it adds real work to
   buy feasibility for traces that would otherwise die in `infer_levels`.
 * semantic preservation is checked externally by interpreting both
-  traces through the real CKKS stack (repro.compiler.interp, exercised
+  traces through the real CKKS stack (repro_torch.compiler.interp, exercised
   by tests/test_compiler.py for every pass on every workload).
 """
 from __future__ import annotations
@@ -107,7 +107,7 @@ class PassStats:
     reverted: bool = False
     wall_s: float = 0.0               # compile-time cost of the pass
                                       # itself (run + cost re-check)
-    verify_wall_s: float = 0.0        # repro.analysis per-pass sweep
+    verify_wall_s: float = 0.0        # repro_torch.analysis per-pass sweep
     verify_findings: int = 0          # findings (any severity) it raised
 
     @property
@@ -128,7 +128,7 @@ class CompileReport:
     seconds_opt: float
     n_ops_unopt: int
     n_ops_opt: int
-    # static-verification accounting (repro.analysis): per-pass sweeps
+    # static-verification accounting (repro_torch.analysis): per-pass sweeps
     # plus the final full-budget trace verification
     verify_wall_s: float = 0.0
     verify_findings: int = 0
@@ -190,8 +190,12 @@ def optimize_trace(trace: FheTrace, params: CkksParams,
     Raises LevelBudgetExhausted only if the trace is too deep AND
     bootstrap insertion is disabled (or cannot fix it).
 
-    ``verify=True`` asks for the static verifier, which this package
-    does not have yet: it raises NotImplementedError.
+    ``verify=True`` runs the static verifier (repro_torch.analysis) after
+    every applied pass — an error finding raises
+    `PassVerificationError` naming the offending pass — plus one full
+    level-budget verification of the final trace. Per-pass sweeps skip
+    the budget rules: a mid-pipeline trace may be legally deeper than
+    the chain until bootstrap insertion runs.
 
     ``passes`` overrides the config's enabled pass list (same Pass
     protocol: .name, .may_increase_cost, .run) — the hook the mutation
@@ -200,10 +204,12 @@ def optimize_trace(trace: FheTrace, params: CkksParams,
     """
     config = config or PassConfig()
     if verify:
-        # the static verifier (analysis/) is not part of this package yet
-        raise NotImplementedError(
-            "optimize_trace(verify=True) needs repro_torch.analysis, which "
-            "is not yet ported")
+        # deferred import: repro_torch.analysis imports core only, but keep
+        # the compiler importable without it on the hot path anyway
+        from repro_torch.analysis.findings import (PassVerificationError,
+                                             VerificationError)
+        from repro_torch.analysis.verify_ir import verify_trace
+        from repro_torch.analysis.verify_schedule import verify_pass
     start = config.resolve_start_level(trace, params)
     work = FheTrace(clone_ops(trace), list(trace.inputs),
                     list(trace.outputs), list(trace.consts))
@@ -211,6 +217,7 @@ def optimize_trace(trace: FheTrace, params: CkksParams,
     n_unopt = len(work.ops)
     sec = sec_unopt
     stats: List[PassStats] = []
+    v_wall, v_found = 0.0, 0
     for p in (config.enabled() if passes is None else passes):
         before_ops = len(work.ops)
         t0 = time.perf_counter()
@@ -226,14 +233,36 @@ def optimize_trace(trace: FheTrace, params: CkksParams,
                 and sec is not None and sec_new is not None:
             assert sec_new <= sec * (1 + 1e-9), \
                 f"pass {p.name} increased analytic cost {sec} -> {sec_new}"
-        stats.append(PassStats(p.name, before_ops, len(new.ops),
-                               sec, sec_new, applied, reverted, wall_s=wall))
+        st = PassStats(p.name, before_ops, len(new.ops),
+                       sec, sec_new, applied, reverted, wall_s=wall)
+        if verify and applied:
+            rep = verify_pass(work, new, check_budget=False,
+                              start_level=start,
+                              bootstrap_to=config.bootstrap_to,
+                              subject=p.name)
+            st.verify_wall_s = rep.wall_s
+            st.verify_findings = len(rep.findings)
+            v_wall += rep.wall_s
+            v_found += len(rep.findings)
+            if not rep.ok:
+                raise PassVerificationError(p.name, rep)
+        stats.append(st)
         work, sec = new, sec_new
     if sec is None:
         # still infeasible: surface the structured error to the caller
         infer_levels(work, start, config.bootstrap_to)
+    if verify:
+        # final sweep WITH the budget rules: every pass has had its say
+        rep = verify_trace(work, start_level=start,
+                           bootstrap_to=config.bootstrap_to,
+                           check_budget=True, subject="post-pipeline")
+        v_wall += rep.wall_s
+        v_found += len(rep.findings)
+        if not rep.ok:
+            raise VerificationError(rep, context="optimized trace")
     return work, CompileReport(stats, sec_unopt, sec, n_unopt,
-                               len(work.ops))
+                               len(work.ops), verify_wall_s=v_wall,
+                               verify_findings=v_found)
 
 
 class PassManager:

@@ -9,10 +9,12 @@ pipeline. Reports latency percentiles, throughput, cache hit rates, and
 tolerance.
 
 Backends: ``analytic`` (MemoryModel cost model, virtual clock),
-``ciphertext`` (real encrypted execution through the batched CKKS
-engine, wall clock) and ``pim`` (discrete-event simulation of the
-hierarchical FHEmem hardware model, repro_torch.pim; pick the hardware
-point with ``--pim-preset``). Everything runs on ``--device`` (default
+``mesh`` (distributed placeholder stages over torch.distributed, wall
+clock; world size 1 in-process unless a process group is already
+initialised), ``ciphertext`` (real encrypted execution through the
+batched CKKS engine, wall clock) and ``pim`` (discrete-event simulation
+of the hierarchical FHEmem hardware model, repro_torch.pim; pick the
+hardware point with ``--pim-preset``). Everything runs on ``--device`` (default
 cuda; the run fails without a CUDA device unless ``--device cpu`` is
 given). Without ``--smoke`` the parameters are the paper's deep set
 (logN=16, L=23, dnum=4) from start level 20.
@@ -24,6 +26,8 @@ pim backend's hardware points come from (repro_torch.pim.arch).
 backend instance: a ciphertext fleet builds N engines on the one torch
 device. ``--trace-out`` / ``--metrics-out`` / ``--log-json`` export the
 serve's span trees, time series and lifecycle events (repro_torch.obs).
+``--verify`` sweeps every compiled schedule and lowered PIM program with
+the static verifier (repro_torch.analysis) and prints its summary.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_fhe \\
         --backend ciphertext --use-kernels
@@ -32,6 +36,8 @@ serve's span trees, time series and lifecycle events (repro_torch.obs).
     PYTHONPATH=src python -m repro_torch.launch.serve_fhe --smoke \\
         --backend pim --fleet 4 --router least_loaded --device cpu \\
         --trace-out trace.json --metrics-out metrics.prom
+    PYTHONPATH=src python -m repro_torch.launch.serve_fhe --smoke \\
+        --backend mesh --verify --device cpu
 """
 from __future__ import annotations
 
@@ -90,16 +96,18 @@ def build_executor(params: CkksParams, mem: MemoryModel, *,
                    backend_name: str, max_batch: int, max_wait_s: float,
                    cache_bytes: int, start_level: int, opt: bool = True,
                    use_kernels: Optional[bool] = None,
-                   device=None) -> PipelinedExecutor:
+                   device=None, verify: bool = False) -> PipelinedExecutor:
     policy = BatchPolicy(slots_per_ct=params.slots, max_batch=max_batch,
                          max_wait_s=max_wait_s)
     key_cache = (KeyCache(cache_bytes, load_bw=mem.load_bw)
                  if cache_bytes > 0 else None)
     backend = resolve_backend(backend_name, params, mem,
-                              use_kernels=use_kernels, device=device)
+                              use_kernels=use_kernels, device=device,
+                              verify=verify)
     ex = PipelinedExecutor(params, mem, backend=backend, policy=policy,
                            key_cache=key_cache,
-                           pass_config=PassConfig() if opt else None)
+                           pass_config=PassConfig() if opt else None,
+                           verify=verify)
     register_workloads(ex, start_level)
     return ex
 
@@ -110,7 +118,8 @@ def build_fleet_scheduler(params: CkksParams, mem: MemoryModel, *,
                           cache_bytes: int, start_level: int,
                           opt: bool = True, continuous_batching: bool = False,
                           preempt: bool = False,
-                          use_kernels: Optional[bool] = None, device=None):
+                          use_kernels: Optional[bool] = None, device=None,
+                          verify: bool = False):
     """Fleet-mode mirror of build_executor: N devices (each with its own
     backend instance and caches, all on the torch `device`), one router,
     one scheduler."""
@@ -120,12 +129,14 @@ def build_fleet_scheduler(params: CkksParams, mem: MemoryModel, *,
 
     def backend_factory():
         return resolve_backend(backend_name, params, mem,
-                               use_kernels=use_kernels, device=device)
+                               use_kernels=use_kernels, device=device,
+                               verify=verify)
     fleet = FleetScheduler(
         params, mem, n_devices=n_devices, backend=backend_factory,
         router=router, policy=policy, cache_bytes=cache_bytes,
         pass_config=PassConfig() if opt else None,
-        continuous_batching=continuous_batching, preempt=preempt)
+        continuous_batching=continuous_batching, preempt=preempt,
+        verify=verify)
     register_workloads(fleet, start_level)
     return fleet
 
@@ -182,7 +193,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--smoke", action="store_true",
                     help="small params, few requests, fast end-to-end check")
-    ap.add_argument("--backend", choices=("analytic", "ciphertext", "pim"),
+    ap.add_argument("--backend",
+                    choices=("analytic", "mesh", "ciphertext", "pim"),
                     default="analytic")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="torch device everything runs on; cuda fails "
@@ -230,6 +242,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "(repro_torch.kernels; bit-exact vs the library "
                          "path; their plain torch versions on the CPU); "
                          "default: on iff --device cuda")
+    ap.add_argument("--verify", action="store_true",
+                    help="static verification (repro_torch.analysis): sweep "
+                         "every freshly compiled schedule (per-pass "
+                         "diffs, trace/schedule invariants) and — with "
+                         "--backend pim — hazard-analyze every lowered "
+                         "instruction stream; an error finding aborts "
+                         "instead of serving a corrupt artifact")
     ap.add_argument("--opt", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="run the optimizing trace compiler "
@@ -264,6 +283,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  f"would silently override --pim-preset "
                  f"{args.pim_preset!r}; pass one of them")
     return args
+
+
+def verify_summary(ex):
+    """What --verify swept on an executor or a fleet: (schedules, lowered
+    programs, findings, wall seconds). Warmup compiles point metrics at a
+    scratch registry, so the durable record is the one riding the cached
+    schedules (and, for pim, the backend's lower-time counters)."""
+    devices = getattr(ex, "devices", None) or [ex]
+    scheds = [s for d in devices for s in d.compile_cache._cache.values()]
+    backends = [d.backend for d in devices]
+    v_wall = sum(getattr(s, "_verify_wall_s", 0.0) for s in scheds)
+    v_find = sum(len(s.verify_report.findings) for s in scheds
+                 if getattr(s, "verify_report", None) is not None)
+    v_wall += sum(getattr(b, "verify_wall_s", 0.0) for b in backends)
+    v_find += sum(getattr(b, "verify_findings", 0) for b in backends)
+    n_prog = sum(len(getattr(b, "_lowered", ())) for b in backends)
+    return len(scheds), n_prog, v_find, v_wall
 
 
 @dataclasses.dataclass
@@ -319,14 +355,15 @@ def serve(args: argparse.Namespace,
             start_level=start_level, opt=args.opt,
             continuous_batching=args.continuous_batching,
             preempt=args.preempt, use_kernels=args.use_kernels,
-            device=device)
+            device=device, verify=args.verify)
     else:
         ex = build_executor(params, mem, backend_name=args.backend,
                             max_batch=args.max_batch,
                             max_wait_s=args.max_wait_ms * 1e-3,
                             cache_bytes=args.cache_mb * 2 ** 20,
                             start_level=start_level, opt=args.opt,
-                            use_kernels=args.use_kernels, device=device)
+                            use_kernels=args.use_kernels, device=device,
+                            verify=args.verify)
     arrivals = synth_arrivals(
         ex, n_tenants=args.tenants, n_requests=args.requests,
         rate_rps=args.rate, seed=args.seed,
@@ -348,7 +385,7 @@ def serve(args: argparse.Namespace,
     # observability: the tracer/event log hang off the shared registry
     # (fleet devices all share ex.metrics), attached after warmup so
     # deploy-time work stays out of the serving trace
-    clock = "wall" if args.backend == "ciphertext" else "virtual"
+    clock = "wall" if args.backend in ("mesh", "ciphertext") else "virtual"
     tracer = None
     if args.trace_out:
         tracer = ex.metrics.tracer = Tracer()
@@ -362,6 +399,11 @@ def serve(args: argparse.Namespace,
             ex.metrics.slo = SloBurnRate()
     m = ex.serve(arrivals)
     print(m.format_table())
+    if args.verify:
+        n_sched, n_prog, v_find, v_wall = verify_summary(ex)
+        print(f"verify: {n_sched} schedule(s) + {n_prog} lowered "
+              f"program(s) swept, {v_find} finding(s), "
+              f"{v_wall * 1e3:.1f} ms wall")
     if tracer is not None:
         obj = write_trace(tracer.store, args.trace_out, clock=clock,
                           telemetry=telemetry)

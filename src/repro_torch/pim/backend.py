@@ -36,14 +36,12 @@ class PimBackend:
 
     def __init__(self, arch: Optional[PimArch] = None,
                  preset: str = "fhemem", verify: bool = False):
-        """``verify=True`` asks for the static hazard analyzer over every
-        freshly lowered program, which this package does not have yet: it
-        raises NotImplementedError."""
-        if verify:
-            raise NotImplementedError(
-                "PimBackend(verify=True) needs repro_torch.analysis, "
-                "which is not yet ported")
         self.arch = arch if arch is not None else get_arch(preset)
+        # verify=True runs the static hazard analyzer
+        # (repro_torch.analysis.pim_hazards) over every freshly lowered
+        # program; an error finding raises VerificationError before the
+        # stream can execute
+        self.verify = verify
         # keyed by id(schedule); the schedule reference is retained so
         # a recycled id can never alias a dead schedule
         self._lowered: Dict[int, Tuple[PipelineSchedule, LayoutPlan,
@@ -51,6 +49,9 @@ class PimBackend:
         # workload -> per-stage {stage, load_s, compute_s, move_s} of
         # the most recent batch (fig19's breakdown source)
         self.last_breakdown: Dict[str, List[dict]] = {}
+        # verify-on-lower accounting, aggregated by serve_fhe --verify
+        self.verify_wall_s = 0.0
+        self.verify_findings = 0
 
     def program_for(self, schedule: PipelineSchedule) -> PimProgram:
         key = id(schedule)
@@ -58,6 +59,14 @@ class PimBackend:
         if hit is None or hit[0] is not schedule:
             layout = plan_layout(schedule, self.arch)
             prog = lower_schedule(schedule, self.arch, layout)
+            if self.verify:
+                from repro_torch.analysis.findings import VerificationError
+                from repro_torch.analysis.pim_hazards import analyze_program
+                rep = analyze_program(prog, schedule, self.arch, layout)
+                self.verify_wall_s += rep.wall_s
+                self.verify_findings += len(rep.findings)
+                if not rep.ok:
+                    raise VerificationError(rep, context="pim lower")
             self._lowered[key] = (schedule, layout, prog)
             return prog
         return hit[2]

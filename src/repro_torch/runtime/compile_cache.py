@@ -55,18 +55,49 @@ class CompileCache:
 
     def __init__(self, metrics: Optional[MetricsRegistry] = None,
                  verify: bool = False):
-        """``verify=True`` asks for verify-on-miss through the static
-        verifier, which this package does not have yet: it raises
-        NotImplementedError."""
-        if verify:
-            raise NotImplementedError(
-                "CompileCache(verify=True) needs repro_torch.analysis, "
-                "which is not yet ported")
+        """``verify=True`` arms verify-on-miss: every freshly compiled
+        schedule is swept by the static verifier (repro_torch.analysis) —
+        per-pass when the optimizer runs, then trace + schedule — and
+        an error finding raises `VerificationError` instead of caching
+        a corrupt schedule. Hits skip verification (the artifact in the
+        cache already passed)."""
         self.metrics = metrics or MetricsRegistry()
+        self.verify = verify
         self._cache: Dict[Tuple, PipelineSchedule] = {}
 
     def __len__(self) -> int:
         return len(self._cache)
+
+    def _verify_miss(self, sched: PipelineSchedule, trace: FheTrace,
+                     params: CkksParams,
+                     pass_config: Optional[PassConfig],
+                     pass_report) -> None:
+        """Static verification of a freshly compiled schedule. When the
+        optimizer ran, the final trace already passed its full-budget
+        sweep inside `optimize_trace(verify=True)` — only the schedule
+        invariants remain; verbatim-serving misses verify both."""
+        from repro_torch.analysis.findings import VerificationError
+        from repro_torch.analysis.verify_ir import resolve_start_level
+        from repro_torch.analysis.verify_schedule import verify_schedule
+        if pass_config is not None:
+            start = pass_config.resolve_start_level(trace, params)
+            boot_to = pass_config.bootstrap_to
+        else:
+            start = resolve_start_level(trace, None)
+            boot_to = None
+        rep = verify_schedule(sched, start_level=start,
+                              bootstrap_to=boot_to,
+                              include_trace=pass_config is None)
+        wall = rep.wall_s + (pass_report.verify_wall_s
+                             if pass_report is not None else 0.0)
+        found = len(rep.findings) + (pass_report.verify_findings
+                                     if pass_report is not None else 0)
+        sched.verify_report = rep
+        sched._verify_wall_s = wall
+        self.metrics.incr("verify_findings", by=found)
+        self.metrics.incr("verify_errors", by=len(rep.errors))
+        if not rep.ok:
+            raise VerificationError(rep, context="compile verify")
 
     def get_schedule(self, trace: FheTrace, params: CkksParams,
                      mem: MemoryModel,
@@ -74,12 +105,12 @@ class CompileCache:
                      = generate_load_save_pipeline,
                      pass_config: Optional[PassConfig] = None,
                      obs=None, **mapper_kwargs) -> PipelineSchedule:
-        """Optionally run the optimizing compiler (repro.compiler) on the
+        """Optionally run the optimizing compiler (repro_torch.compiler) on the
         trace before mapping. `pass_config` participates in the cache
         key, so opt and no-opt schedules of one workload — or two
         different pass selections — never collide.
 
-        ``obs`` is an optional `repro.obs.ExecObs` (an explicit kwarg —
+        ``obs`` is an optional `repro_torch.obs.ExecObs` (an explicit kwarg —
         it must never leak into ``mapper_kwargs``, which participate in
         the cache key): with it, a ``compile`` span lands under the
         caller's batch span — zero duration on the serving timeline
@@ -99,10 +130,14 @@ class CompileCache:
             t0 = time.perf_counter()
             report = None
             if pass_config is not None:
-                trace, report = optimize_trace(trace, params, pass_config)
+                trace, report = optimize_trace(trace, params, pass_config,
+                                               verify=self.verify)
                 self.metrics.incr("traces_optimized")
             sched = mapper(trace, params, mem, **mapper_kwargs)
             sched.pass_report = report
+            if self.verify:
+                self._verify_miss(sched, trace, params, pass_config,
+                                  report)
             sched._compile_wall_s = time.perf_counter() - t0
             self._cache[key] = sched
         sched = self._cache[key]

@@ -1,12 +1,17 @@
 """Round-based serving engine: drains the slot batcher through a
 pipeline backend behind one interface.
 
-Three backends, one contract (``execute(schedule, batch, ...) -> seconds``):
+Four backends, one contract (``execute(schedule, batch, ...) -> seconds``):
 
 * ``AnalyticBackend`` — the MemoryModel cost model (core/pipeline.py)
   driven as a discrete-event simulation on a virtual clock. Stage
   constant loads consult the KeyCache: a resident stage costs zero load
   time for the next batch. Deterministic; runs anywhere.
+* ``MeshBackend`` — the real distributed executor
+  (fhe_dist/pipeline_exec.py over torch.distributed): batches become
+  microbatch stacks flowing rank to rank through a ring shift, stage
+  constants become device-resident tensors cached across batches,
+  service time is wall clock.
 * ``CiphertextBackend`` (runtime/ciphertext_backend.py) — real encrypted
   execution on a torch device: batches are encrypted under the runtime's
   CKKS keys and every schedule op runs as one batched pass over the
@@ -18,9 +23,6 @@ Three backends, one contract (``execute(schedule, batch, ...) -> seconds``):
   replayed on a virtual clock; the degenerate flat arch reproduces
   AnalyticBackend stage times exactly.
 
-The reference's ``mesh`` backend is not ported yet; `resolve_backend`
-names it and raises.
-
 ``PipelinedExecutor`` owns the event loop: admit arrivals → poll the
 batcher → compile (memoized) → execute → record completions.
 """
@@ -29,7 +31,11 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.compiler import PassConfig
 from repro_torch.core.params import CkksParams
@@ -37,6 +43,8 @@ from repro_torch.core.pipeline import (MemoryModel, PipelineSchedule,
                                  generate_load_save_pipeline)
 from repro_torch.core.trace import (FheTrace, LevelBudgetExhausted, infer_levels,
                               trace_program)
+from repro_torch.fhe_dist.pipeline_exec import run_load_save_pipeline
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.obs.tracer import ExecObs
 from repro_torch.runtime.batcher import Batch, BatchPolicy, SlotBatcher
 from repro_torch.runtime.compile_cache import CompileCache
@@ -131,6 +139,132 @@ class AnalyticBackend:
         return total
 
 
+def _identity_stage(x):
+    return x
+
+
+def default_stage_fn_builder(stage, const):
+    """Shape-preserving placeholder stage body: an affine map with the
+    stage's (cached, device-resident) constant. Real FHE stage bodies
+    plug in here once core ops are wired batch-wise; the pipeline
+    structure, residency, and transfer pattern are already the real
+    ones."""
+    w, bias = const[0], const[1]
+
+    def fn(x):
+        return x * w + bias
+    return fn
+
+
+class MeshBackend:
+    """Real pipelined execution on a torch.distributed mesh via
+    fhe_dist.pipeline_exec.run_load_save_pipeline.
+
+    Batches become (n_ciphertexts, slots_per_ct) float32 stacks (each
+    request's payload written into its owned slot range) on the mesh's
+    device; schedule rounds are regrouped into chunks of the mesh's
+    data-axis size (identity-padded), so the same schedule runs on any
+    rank count. Stage constants are materialized host→device through the
+    KeyCache: a hit reuses the resident device tensor.
+    """
+
+    def __init__(self, mesh=None, axis: str = "data",
+                 slots_per_ct: int = 128,
+                 stage_fn_builder: Callable = default_stage_fn_builder,
+                 pad_batch_to: Optional[int] = None, device=None):
+        if mesh is None:
+            ranks = dist.get_world_size() if dist.is_initialized() else 1
+            mesh = make_host_mesh(data=ranks, model=1, device=device)
+        self.mesh = mesh
+        self.device = mesh.device
+        self.axis = axis
+        self.slots_per_ct = slots_per_ct
+        self.stage_fn_builder = stage_fn_builder
+        # pad every batch to this many microbatches so each workload
+        # builds exactly one round list (classic serving bucketing)
+        self.pad_batch_to = pad_batch_to
+        self._rounds: Dict[Tuple, List[List[Callable]]] = {}
+
+    def _make_const(self, stage_idx: int):
+        rng = np.random.default_rng(1000 + stage_idx)
+        w = 1.0 - 1e-3 * rng.uniform(size=(self.slots_per_ct,))
+        bias = 1e-3 * rng.standard_normal((self.slots_per_ct,))
+        return torch.from_numpy(
+            np.stack([w, bias]).astype(np.float32)).to(self.device)
+
+    def _pack(self, batch: Batch, n_micro: int):
+        x = np.zeros((n_micro, self.slots_per_ct), dtype=np.float32)
+        for ct_i, group in enumerate(batch.slot_groups):
+            off = 0
+            for r in group:
+                n = r.slots_needed
+                if r.payload is not None:
+                    try:
+                        v = np.asarray(r.payload,
+                                       dtype=np.float32).ravel()[:n]
+                    except (TypeError, ValueError):
+                        v = None   # opaque payload (e.g. a Ciphertext):
+                    if v is not None:  # slots stay zero, request still rides
+                        x[ct_i, off:off + len(v)] = v
+                off += n
+        return torch.from_numpy(x).to(self.device)
+
+    def execute(self, schedule: PipelineSchedule, batch: Batch, *,
+                key_cache: Optional[KeyCache],
+                metrics: MetricsRegistry, workload: str,
+                obs: Optional[ExecObs] = None) -> float:
+
+        # residency accounting + device-resident constants (with no key
+        # cache, constants are only materialized when building below)
+        consts = None
+        if key_cache is not None:
+            consts = [key_cache.get_or_load(
+                (workload, "stage", st.idx), st.const_bytes,
+                loader=lambda i=st.idx: self._make_const(i))[0]
+                for st in schedule.stages]
+
+        # pad to the bucket size, but never below the actual batch —
+        # a misconfigured pad_batch_to < max_batch must not drop groups
+        n_micro = max(self.pad_batch_to or 0, batch.n_ciphertexts, 1)
+        # one round list per (workload, stage count, bucket size);
+        # _make_const is deterministic per stage idx, so stage bodies
+        # built on the first call stay valid across keycache evictions
+        key = (workload, len(schedule.stages), n_micro)
+        if key not in self._rounds:
+            if consts is None:
+                consts = [self._make_const(st.idx)
+                          for st in schedule.stages]
+            fns = [self.stage_fn_builder(st, c)
+                   for st, c in zip(schedule.stages, consts)]
+            n_dev = self.mesh.shape[self.axis]
+            rounds = []
+            for i in range(0, len(fns), n_dev):
+                chunk = fns[i:i + n_dev]
+                chunk += [_identity_stage] * (n_dev - len(chunk))
+                rounds.append(chunk)
+            self._rounds[key] = rounds
+
+        x = self._pack(batch, n_micro)
+        t0 = time.perf_counter()
+        out = run_load_save_pipeline(self._rounds[key], x, self.mesh,
+                                     self.axis)
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+        dt = time.perf_counter() - t0
+        n_rounds = max(1, len(schedule.rounds))
+        for st in schedule.stages:
+            metrics.occupancy.add(st.partition, dt / n_rounds)
+        batch.outputs = out
+        if obs is not None and obs.tracer is not None:
+            # the mesh measures the whole pipeline as one execution — no
+            # per-stage decomposition, so a single execute span carries
+            # the total (the reference's name, which trace readers key on)
+            obs.tracer.span("xla_execute", obs.t0, obs.t0 + dt,
+                            parent=obs.parent, track=obs.track,
+                            n_rounds=n_rounds, n_micro=n_micro)
+        return dt
+
+
 # ---------------------------------------------------------------------------
 # executor
 # ---------------------------------------------------------------------------
@@ -197,28 +331,33 @@ def record_request_completion(metrics: MetricsRegistry, r: Request,
     return True
 
 
-BACKEND_NAMES = ("analytic", "ciphertext", "pim")
-NOT_YET_PORTED = ("mesh",)
+BACKEND_NAMES = ("analytic", "mesh", "ciphertext", "pim")
 
 
 def resolve_backend(name: str, params: CkksParams, mem: MemoryModel,
                     use_kernels: Optional[bool] = None,
                     device=None, verify: bool = False):
     """Build a backend from its CLI/ctor name: ``analytic`` (cost model),
-    ``ciphertext`` (real encrypted execution via
-    repro_torch.compiler.engine on `device`, CUDA unless told otherwise)
-    or ``pim`` (discrete-event simulation of the hierarchical FHEmem
-    hardware model, repro_torch.pim — the arch is recovered from `mem`: a
-    preset projection maps back to its preset, anything else is wrapped
-    in a degenerate arch billing exactly like AnalyticBackend).
+    ``mesh`` (distributed placeholder stages over torch.distributed on
+    `device`), ``ciphertext`` (real encrypted execution via
+    repro_torch.compiler.engine on `device`), ``pim`` (discrete-event
+    simulation of the hierarchical FHEmem hardware model, repro_torch.pim
+    — the arch is recovered from `mem`: a preset projection maps back to
+    its preset, anything else is wrapped in a degenerate arch billing
+    exactly like AnalyticBackend). `device` is CUDA unless the caller
+    asks for another.
 
     ``use_kernels`` (ciphertext backend only) routes keyswitch + modmul
     through the hand-written CUDA kernels; None keeps the backend's own
-    default (on iff its device is CUDA). ``verify`` (pim backend only)
-    asks for the static hazard analyzer, which is not ported yet: it
-    raises."""
+    default (on iff its device is CUDA).
+
+    ``verify`` (pim backend only) arms the static hazard analyzer
+    (repro_torch.analysis.pim_hazards) over every freshly lowered
+    instruction stream."""
     if name == "analytic":
         return AnalyticBackend(mem)
+    if name == "mesh":
+        return MeshBackend(slots_per_ct=params.slots, device=device)
     if name == "ciphertext":
         from repro_torch.runtime.ciphertext_backend import CiphertextBackend
         return CiphertextBackend(params, use_kernels=use_kernels,
@@ -226,10 +365,6 @@ def resolve_backend(name: str, params: CkksParams, mem: MemoryModel,
     if name == "pim":
         from repro_torch.pim.backend import resolve_pim_backend
         return resolve_pim_backend(mem, verify=verify)
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"backend {name!r} is not yet ported to repro_torch; use the "
-            f"JAX package (repro.runtime.executor) for it")
     from repro_torch.pim.arch import PRESETS
     raise ValueError(
         f"unknown backend {name!r}: valid backends are "
@@ -242,9 +377,9 @@ def resolve_backend(name: str, params: CkksParams, mem: MemoryModel,
 class PipelinedExecutor:
     """Admission queue → slot batcher → compile cache → backend, driven
     on a virtual clock (event times from the analytic backend) or wall
-    clock deltas (ciphertext backend) — the loop is the same either
-    way. `backend` may be an instance or a name ("analytic" |
-    "ciphertext" | "pim")."""
+    clock deltas (mesh/ciphertext backends) — the loop is the same
+    either way. `backend` may be an instance or a name ("analytic" |
+    "mesh" | "ciphertext" | "pim")."""
 
     def __init__(self, params: CkksParams, mem: MemoryModel,
                  backend=None, policy: Optional[BatchPolicy] = None,
@@ -252,7 +387,8 @@ class PipelinedExecutor:
                  max_depth_per_tenant: int = 256,
                  mapper: Callable[..., PipelineSchedule]
                  = generate_load_save_pipeline,
-                 pass_config: Optional[PassConfig] = None):
+                 pass_config: Optional[PassConfig] = None,
+                 verify: bool = False):
         self.params = params
         self.mem = mem
         self.metrics = MetricsRegistry(n_partitions=mem.n_partitions)
@@ -262,14 +398,17 @@ class PipelinedExecutor:
         self.policy = policy or BatchPolicy(slots_per_ct=params.slots)
         self.queue = AdmissionQueue(max_depth_per_tenant, self.metrics)
         self.batcher = SlotBatcher(self.queue, self.policy, self.metrics)
-        # pad every ciphertext batch to max_batch, so warmup() meets the
-        # same shapes (and builds the same tables) every batch will use
+        # pad every mesh and ciphertext batch to max_batch, so warmup()
+        # meets the same shapes (and builds the same round lists and
+        # tables) every batch will use
         if getattr(self.backend, "pad_batch_to", 0) is None:
             self.backend.pad_batch_to = self.policy.max_batch
         self.key_cache = key_cache
         if key_cache is not None:
             key_cache.metrics = self.metrics   # one registry for all parts
-        self.compile_cache = CompileCache(self.metrics)
+        # verify=True arms static verify-on-miss (repro_torch.analysis):
+        # every freshly compiled schedule is swept before it can serve
+        self.compile_cache = CompileCache(self.metrics, verify=verify)
         self.mapper = mapper
         # optimizing compiler (repro.compiler) between capture and the
         # mapper; None serves every trace verbatim
@@ -332,9 +471,9 @@ class PipelinedExecutor:
     def warmup(self) -> float:
         """Pre-compile every registered workload and pre-load its stage
         constants (deploy-time work that must not count against request
-        deadlines: on the ciphertext backend the first execution pays
-        key generation and table construction). Returns wall seconds
-        spent."""
+        deadlines: on the mesh backend the first execution builds the
+        round lists, on the ciphertext backend it pays key generation and
+        table construction). Returns wall seconds spent."""
         t0 = time.perf_counter()
         scratch = MetricsRegistry(self.mem.n_partitions)
         # deploy-time misses must not dilute the SERVING hit rates:

@@ -11,8 +11,8 @@ the JAX reference's, on the CPU.
   --max-batch and holds the same relin key; its trace and metrics files
   validate. (The reference's own ciphertext fleet is too slow for the
   suite on the CPU, so this case is the port's alone.)
-* serve_fhe's flags equal the reference's, less --verify, plus --device;
-  --backend lacks only mesh.
+* serve_fhe's flags equal the reference's plus --device, and --backend
+  has the same choices.
 * At paper parameters, --backend pim --fleet 4 --router least_loaded
   --continuous-batching --preempt --requests 200 writes trace and
   OpenMetrics files byte-equal to the reference's, and the same event-log
@@ -46,7 +46,7 @@ SMOKE_MEM = dict(n_partitions=4, partition_bytes=8 * 2 ** 20)
 # the nine flags of the fleet, the PIM model and the exporters
 NEW_FLAGS = ("--pim-preset", "--mem-profile", "--fleet", "--router",
              "--continuous-batching", "--preempt", "--trace-out",
-             "--metrics-out", "--log-json")
+             "--metrics-out", "--log-json", "--verify")
 
 
 def _side(side, backend):
@@ -180,14 +180,13 @@ def test_serve_flags_match_reference(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["serve_fhe"])
     ref = _parser(monkeypatch, jserve.main)
     port = _parser(monkeypatch, lambda: tserve.parse_args([]))
-    assert set(port) == set(ref) - {"--verify"} | {"--device"}
+    assert set(port) == set(ref) | {"--device"}
     for flag in set(port) - {"--device", "--backend", "--use-kernels"}:
         a, b = port[flag], ref[flag]
         assert (type(a), a.dest, a.default, a.choices, a.type, a.metavar,
                 a.nargs) == (type(b), b.dest, b.default, b.choices, b.type,
                              b.metavar, b.nargs), flag
-    assert set(ref["--backend"].choices) - set(port["--backend"].choices) \
-        == {"mesh"}
+    assert port["--backend"].choices == ref["--backend"].choices
     assert port["--backend"].default == ref["--backend"].default
     for flag in NEW_FLAGS:
         assert port[flag].help.replace("repro_torch", "repro") \

@@ -63,6 +63,10 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch.examples.helr_training\n"
             "import repro_torch.examples.sorting\n"
             "import repro_torch.obs, repro_torch.pim, repro_torch.fleet\n"
+            "import repro_torch.analysis, repro_torch.analysis.lint\n"
+            "import repro_torch.analysis.mutate, repro_torch.launch.mesh\n"
+            "import repro_torch.fhe_dist.collective_bconv\n"
+            "import repro_torch.fhe_dist.pipeline_exec\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -83,7 +87,12 @@ def test_sources_import_no_reference():
             "obs/perfetto.py", "obs/critical_path.py", "pim/__init__.py",
             "pim/arch.py", "pim/isa.py", "pim/layout.py", "pim/lower.py",
             "pim/backend.py", "fleet/__init__.py", "fleet/device.py",
-            "fleet/router.py", "fleet/scheduler.py"} <= walked
+            "fleet/router.py", "fleet/scheduler.py", "analysis/__init__.py",
+            "analysis/findings.py", "analysis/verify_ir.py",
+            "analysis/verify_schedule.py", "analysis/pim_hazards.py",
+            "analysis/mutate.py", "analysis/lint.py", "fhe_dist/__init__.py",
+            "fhe_dist/layout.py", "fhe_dist/collective_bconv.py",
+            "fhe_dist/pipeline_exec.py", "launch/mesh.py"} <= walked
     for path in files + [CHIP_SMOKE]:
         bad = imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, (path, bad)
@@ -102,18 +111,22 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from repro_torch.benchmarks import fig14_kernels
     from repro_torch.compiler.engine import CkksEngine
     from repro_torch.core.context import CkksContext
-    from repro_torch.launch import serve_fhe
+    from repro_torch.launch import mesh, serve_fhe
     from repro_torch.runtime.ciphertext_backend import CiphertextBackend
+    from repro_torch.runtime.executor import MeshBackend
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = t_test_params(log_n=6, n_levels=2, dnum=1)
     for make in (lambda: CkksEngine(params), lambda: CkksContext(params),
                  lambda: CiphertextBackend(params),
-                 lambda: CkksEngine(params, device="cuda")):
+                 lambda: CkksEngine(params, device="cuda"),
+                 lambda: MeshBackend(), lambda: mesh.make_host_mesh()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     for argv in (["--smoke"], ["--smoke", "--backend", "ciphertext"],
                  ["--smoke", "--fleet", "2", "--backend", "ciphertext"],
-                 ["--smoke", "--fleet", "4", "--backend", "pim"]):
+                 ["--smoke", "--fleet", "4", "--backend", "pim"],
+                 ["--smoke", "--backend", "mesh"],
+                 ["--smoke", "--backend", "mesh", "--verify"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_fhe.main(argv)
     for argv in (["--smoke"], ["--smoke", "--device", "cuda"]):
@@ -125,6 +138,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 example.main(argv)
     assert CkksContext(params, device="cpu").device.type == "cpu"
+    assert not torch.distributed.is_initialized()
     assert CiphertextBackend(params, device="cpu").use_kernels is False
 
 

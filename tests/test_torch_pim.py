@@ -11,8 +11,9 @@ reference's (repro.pim), on the CPU.
   never against a stored golden.
 * `PimBackend` on the flat arch within 1 % of `AnalyticBackend` on every
   workload's schedule, and its seconds equal to the reference's.
-* `PimBackend(verify=True)` raises (the static analyzer is not ported),
-  and serve_fhe refuses a --mem-profile that contradicts --pim-preset.
+* `PimBackend(verify=True)` (directly and through resolve_backend)
+  hazard-analyzes what it lowers, the mesh backend resolves, and
+  serve_fhe refuses a --mem-profile that contradicts --pim-preset.
 """
 import dataclasses
 
@@ -161,15 +162,29 @@ def test_flat_pim_backend_within_one_percent_of_analytic(point):
 
 
 def test_pim_verify_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="repro_torch.analysis"):
-        tpim.PimBackend(verify=True)
-    with pytest.raises(NotImplementedError, match="repro_torch.analysis"):
-        resolve_backend("pim", None, tpim.memory_model("fhemem"),
-                        verify=True)
+    """Once a stub, now the working path: verify-on-lower through both
+    constructors (the hazard analyzer runs on what is lowered and counts
+    its findings), and the mesh backend resolves on the CPU."""
+    import torch.distributed as dist
+    from repro_torch.runtime.executor import MeshBackend
+    ts = schedules("t", "smoke", "fhemem")
+    for be in (tpim.PimBackend(verify=True),
+               resolve_backend("pim", None, tpim.memory_model("fhemem"),
+                               verify=True)):
+        assert be.verify and be.arch.name == "fhemem"
+        for sched in ts.values():
+            assert be.program_for(sched).instrs
+        assert be.verify_wall_s > 0 and be.verify_findings == 0
     be = resolve_backend("pim", None, tpim.memory_model("hbm2"))
     assert isinstance(be, tpim.PimBackend) and be.arch.name == "hbm2"
-    with pytest.raises(NotImplementedError, match="mesh"):
-        resolve_backend("mesh", None, tpim.memory_model("flat"))
+    assert not be.verify
+    try:
+        be = resolve_backend("mesh", tparams.test_params(log_n=6),
+                             tpim.memory_model("flat"), device="cpu")
+        assert isinstance(be, MeshBackend) and be.slots_per_ct == 32
+        assert be.device.type == "cpu" and dist.get_world_size() == 1
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="'fhemem', 'flat', 'hbm2'"):
         resolve_backend("bogus", None, tpim.memory_model("flat"))
 
