@@ -86,15 +86,34 @@ non-zero:
 13. card against CPU — one matvec_bsgs (both modes, log N 8) and one
    bootstrap (log N 7) on the card and on the CPU from the same seeds:
    torch.equal. The CPU tests hold the CPU route to the JAX package.
+14. llm — the LLM serve path (repro_torch.launch.serve, models/,
+   configs/): qwen3-8b at its published configuration (36 layers,
+   d_model 4096, vocab 151936, bf16, weights from a seeded generator on
+   the card) at --batch 8 --prompt-len 32 --gen 32, with its parameter
+   count, weight GiB, peak memory, median ms a decode step
+   (device-synchronised), tok/s and the HBM bound of a step (the bytes
+   a step must move: the weights it reads, the batch's embedding rows,
+   the KV cache up to the position; for the MoE families also with at
+   most batch * top_k experts of a layer read); then every
+   other family once at full width for 7 steps at batch 8, depth cut
+   only where one card forces it (deepseek-v3 1 dense + 1 MoE layer,
+   arctic 1 layer, llama-3.2-vision 1 superblock of 4 + 1 cross; each
+   cut listed in the `reduced` field of its `llm {...}` line), finite
+   logits and tokens in range; then qwen3 and deepseek in float32, the
+   smoke configs and full width cut to depth 1 (deepseek: 1 dense + 1
+   MoE layer of 256 experts), for 4 teacher-forced steps on the card and
+   on the CPU from the same weights, logits and every cache leaf within
+   1e-4 of the CPU's largest value. No kernel of K1-K7 launches on this
+   path.
 
 The deep workloads (11-13) keyswitch through the library route, as the
 reference does, and launch no kernel: their counts must stay 0, as must
-the pim, verify and mesh paths'. Launch counts are set to 0 just before
-each of the staged, fig14, serve, fleet, pim, verify, mesh, linalg and
-bootstrap paths and read just after. The fleet and pim phases write their trace and metrics
-files (the verify phase its lint JSON lines) under
-build/repro_torch/chip_smoke/ and keep the event log in
-memory. Then a JSON line of per-kernel numbers (all ten kernel rows,
+the pim, verify, mesh and llm paths'. Launch counts are set to 0 just
+before each of the staged, fig14, serve, fleet, pim, verify, mesh,
+linalg, bootstrap and llm paths and read just after. The fleet and pim
+phases write their trace and metrics files (the verify phase its lint
+JSON lines) under build/repro_torch/chip_smoke/ and keep the event log
+in memory. Then a JSON line of per-kernel numbers (all ten kernel rows,
 launches per path), the card's name and power limit from nvidia-smi, and
 the final status line.
 Imports nothing of JAX.
@@ -149,6 +168,39 @@ FLEET_DEVICES = 2   # the fleet phase's ciphertext devices on one card
 PIM_DEVICES = 4     # the pim phase's simulated FHEmem devices
 PIM_REQUESTS = 200
 OUT_DIR = os.path.join(ROOT, "build", "repro_torch", "chip_smoke")
+
+# the llm phase: qwen3-8b at its published configuration through
+# repro_torch.launch.serve, then every other family once at full width
+# (depth cut only where one card's 80 GB forces it; listed as `reduced`)
+LLM_ARCH = "qwen3-8b"
+LLM_SERVE = ["--batch", "8", "--prompt-len", "32", "--gen", "32"]
+LLM_FAMILY_SERVE = ["--batch", "8", "--prompt-len", "4", "--gen", "4"]
+LLM_FAMILIES = (
+    ("deepseek-v3-671b", dict(n_layers=2, first_k_dense=1),
+     ["n_layers 61 -> 2: first_k_dense 3 -> 1 dense + 1 MoE layer of 256 "
+      "experts (the MTP block kept)"]),
+    ("arctic-480b", dict(n_layers=1), ["n_layers 35 -> 1 (128 experts)"]),
+    ("llama-3.2-vision-90b", dict(n_layers=5),
+     ["n_layers 100 -> 5: 1 superblock of 4 self-attention + 1 cross-"
+      "attention layer"]),
+    ("seamless-m4t-large-v2", {}, []),
+    ("rwkv6-3b", {}, []),
+    ("recurrentgemma-2b", {}, []),
+    ("granite-3-8b", {}, []),
+    ("codeqwen1.5-7b", {}, []),
+    ("mistral-nemo-12b", {}, []),
+)
+# card against CPU in float32: (arch, smoke config, depth cut); the full
+# width ones take 5.8 and 58 GB on each side, and the CPU rehearsal
+# (llm_phase's smoke) runs only the smoke configs
+LLM_CHECKS = (
+    ("qwen3-8b", True, {}),
+    ("deepseek-v3-671b", True, {}),
+    ("qwen3-8b", False, dict(n_layers=1)),
+    ("deepseek-v3-671b", False, dict(n_layers=2, first_k_dense=1)),
+)
+LLM_CHECK_STEPS = 4
+LLM_CHECK_TOL = 1e-4    # max |card - CPU| / max |CPU|, float32, no TF32
 
 # kernels each driven path must launch, and the path whose count is a
 # kernel's `launches` in the JSON line
@@ -650,6 +702,221 @@ def mesh_phase(torch, dev, smoke=False):
               f"composition", flush=True)
     finally:
         dist.destroy_process_group()
+
+
+def device_busy(torch, fn, steps: int = 4):
+    """Kernels a call of fn launches and the device time they take (ms),
+    each the mean over `steps` calls, from torch.profiler's CUDA events
+    (kernels and copies; one stream, so they do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_ev)
+    return len(dev_ev) / steps, busy_us / steps / 1e3
+
+
+def step_bytes(torch, M, cfg, model, batch, s_max, pos):
+    """Bytes one decode step at position `pos` must move, as (every expert
+    read, at most batch * top_k experts of a MoE layer read). Parameters:
+    the top-level subtrees decode_forward reads (recorded on one step of
+    a fresh cache; deepseek's MTP block and seamless's encoder are not),
+    of the embedding table only the batch's rows unless it is the output
+    head too. Cache: of a KV, latent or ring cache the positions up to
+    `pos` read and one written; a recurrent state read and written whole;
+    the encoder memory and the image tokens read. The logits written."""
+    seen = set()
+
+    class Reads(dict):
+        def __getitem__(self, key):
+            seen.add(key)
+            return dict.__getitem__(self, key)
+
+    with torch.no_grad():
+        M.decode_forward(Reads(model.params), cfg,
+                         model.init_cache(batch, s_max),
+                         torch.zeros(batch, dtype=torch.int32,
+                                     device=model.device), 0)
+    logical = dict(M.tree_items(M.param_schema(cfg)))
+    experts = (min(cfg.n_experts, batch * cfg.top_k) / cfg.n_experts
+               if cfg.n_experts else 1.0)
+    every = active = 0.0
+    for path, p in M.tree_items(model.params):
+        if path[0] not in seen:
+            continue
+        n = p.numel() * p.element_size()
+        if path[0] == "embed" and not cfg.tie_embeddings:
+            n = batch * p.shape[-1] * p.element_size()
+        every += n
+        active += n * experts if "experts" in logical[path].logical else n
+    schema = dict(M.tree_items(M.cache_schema(cfg, batch, s_max)))
+    for path, m in M.tree_items(M.abstract_cache(cfg, batch, s_max)):
+        n = m.numel() * m.element_size()
+        ps = schema[path]
+        if path[0] in ("memory", "images"):
+            n_moved = n
+        elif "seq" in ps.logical:
+            slots = ps.shape[ps.logical.index("seq")]
+            n_moved = n / slots * (min(pos + 1, slots) + 1)
+        else:
+            n_moved = 2 * n
+        every += n_moved
+        active += n_moved
+    logits = batch * cfg.vocab * M.dtype_of(cfg).itemsize
+    return every + logits, active + logits
+
+
+def llm_phase(torch, dev, card, smoke=False):
+    """The LLM serve path (repro_torch.models through launch/serve):
+    qwen3-8b at its full published configuration, every other family once
+    at full width, and the float32 smoke configs of qwen3 and deepseek on
+    the card against the CPU. --smoke (the CPU rehearsal) serves the SMOKE
+    configs instead. Every model's memory is freed before the next."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    def served(arch, argv, changes, reduced):
+        args = serve.parse_args(["--arch", arch, "--device", dev.type]
+                                + (["--smoke"] if smoke else []) + argv)
+        cfg = dataclasses.replace(get_config(arch, smoke=smoke), **changes)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        res = serve.serve(args, cfg=cfg)
+        model = res.model
+        logits, _ = model.decode(res.cache, res.last_tokens,
+                                 args.prompt_len + args.gen - 1)
+        n_params = sum(p.numel() for p in model.parameters())
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        # the bound at the median decode step's position
+        moved, moved_active = step_bytes(
+            torch, M, cfg, model, args.batch, args.prompt_len + args.gen,
+            args.prompt_len - 1 + args.gen // 2)
+        if n_params != cfg.param_count():
+            raise AssertionError(f"{arch}: {n_params} parameters on the "
+                                 f"card, param_count() {cfg.param_count()}")
+        gen = res.generated
+        if not (bool(torch.isfinite(logits).all()) and gen.min() >= 0
+                and gen.max() < cfg.vocab
+                and gen.shape == (args.batch, args.gen)):
+            raise AssertionError(f"{arch}: logits finite "
+                                 f"{bool(torch.isfinite(logits).all())}, "
+                                 f"tokens in [{gen.min()}, {gen.max()}] of "
+                                 f"vocab {cfg.vocab}, shape {gen.shape}")
+        step_ms = statistics.median(res.decode_step_s) * 1e3
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                if dev.type == "cuda" else float("nan"))
+        row = {"arch": arch, "config": cfg.name, "reduced": reduced,
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "vocab": cfg.vocab, "dtype": cfg.dtype, "batch": args.batch,
+               "steps": res.steps, "params": n_params,
+               "weight_gib": weight_bytes / 2 ** 30,
+               "peak_gib": peak,
+               "ms_per_step": step_ms,
+               "tok_s": args.batch / step_ms * 1e3,
+               "serve_tok_s": args.batch * res.steps / res.total_s,
+               "step_bytes": moved,
+               "hbm_bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+               "card": card}
+        if cfg.n_experts:
+            row.update(step_bytes_active=moved_active,
+                       hbm_bound_active_ms=moved_active / HBM_BYTES_PER_S
+                       * 1e3)
+        return res, row
+
+    # qwen3-8b, full width and depth, through the serve entry point
+    res, row = served(LLM_ARCH, LLM_SERVE, {}, [])
+    if dev.type == "cuda":
+        # one more step at the last position, over and over: the device's
+        # share of a step (the profiler slows the host, not the kernels)
+        last = row["steps"]
+        n_dev, busy_ms = device_busy(torch, lambda: res.model.serve_step(
+            res.cache, res.last_tokens, last))
+        row.update(device_events_per_step=n_dev, device_busy_ms=busy_ms,
+                   idle_share=1 - busy_ms / row["ms_per_step"])
+    for line in serve.report(res, row["batch"]):
+        print(f"  {line}")
+    print(f"llm: {row['config']} {row['params']} parameters "
+          f"({row['weight_gib']:.2f} GiB of {row['dtype']} weights), peak "
+          f"device memory {row['peak_gib']:.2f} GiB, "
+          f"{row['ms_per_step']:.3f} ms a decode step (median of "
+          f"{len(res.decode_step_s)}, device-synchronised), "
+          f"{row['tok_s']:.1f} tok/s at batch {row['batch']}; HBM bound "
+          f"{row['hbm_bound_ms']:.3f} ms a step ({row['step_bytes'] / 1e9:.3f}"
+          f" GB a step must move: the weights it reads, {row['batch']} "
+          f"embedding rows, the KV cache up to the position; / "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]", flush=True)
+    if "device_busy_ms" in row:
+        print(f"llm: {row['config']} a decode step under torch.profiler: "
+              f"{row['device_events_per_step']:.0f} kernels and copies, "
+              f"{row['device_busy_ms']:.3f} ms of device time; idle "
+              f"{100 * row['idle_share']:.1f} % of the "
+              f"{row['ms_per_step']:.3f} ms step [{card}]", flush=True)
+    print("llm " + json.dumps(row), flush=True)
+    del res
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    for arch, changes, reduced in LLM_FAMILIES:
+        res, row = served(arch, LLM_FAMILY_SERVE, {} if smoke else changes,
+                          [] if smoke else reduced)
+        print("llm " + json.dumps(row), flush=True)
+        del res
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # the card against the CPU: same weights, same teacher-forced tokens
+    cpu = torch.device("cpu")
+    for arch, small, changes in LLM_CHECKS:
+        if smoke and not small:
+            continue
+        cfg = dataclasses.replace(get_config(arch, smoke=small),
+                                  dtype="float32", **changes)
+        params = M.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        card_m = M.DecodeModel(cfg, dev, params=params)
+        host = M.DecodeModel(cfg, cpu, params=M.tree_map(
+            lambda t: t.to(cpu), params))
+        b = 8 if cfg.n_experts else 2
+        c_host, c_card = host.init_cache(b, 8), card_m.init_cache(b, 8)
+        toks = np.random.default_rng(3).integers(0, cfg.vocab,
+                                                 (LLM_CHECK_STEPS, b))
+        worst = 0.0
+        for i in range(LLM_CHECK_STEPS):
+            tok = torch.as_tensor(toks[i], dtype=torch.int32)
+            l_host, c_host = host.decode(c_host, tok, i)
+            l_card, c_card = card_m.decode(c_card, tok.to(dev), i)
+            pairs = [(f"logits step {i}", l_card, l_host)] + [
+                (f"cache {'/'.join(p)} step {i}", a, h) for (p, a), (_, h)
+                in zip(M.tree_items(c_card), M.tree_items(c_host))]
+            for what, a, h in pairs:
+                err = (a.cpu().double() - h.double()).abs().max().item()
+                scale = h.double().abs().max().item()
+                if not err <= LLM_CHECK_TOL * max(scale, 1e-30):
+                    raise AssertionError(f"{cfg.name} {what}: card and CPU "
+                                         f"differ by {err} (max {scale})")
+                worst = max(worst, err / max(scale, 1e-30))
+        cut = "" if small else (f", full width, n_layers {cfg.n_layers}"
+                                + (f" (first_k_dense {cfg.first_k_dense})"
+                                   if cfg.first_k_dense else ""))
+        print(f"llm: {cfg.name} float32{cut}, {LLM_CHECK_STEPS} steps at "
+              f"batch {b}: card and CPU logits and every cache leaf within "
+              f"{LLM_CHECK_TOL} of the CPU's largest value (worst "
+              f"{worst:.2e})", flush=True)
+        del params, card_m, host, c_host, c_card, l_host, l_card, pairs
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1175,9 +1442,10 @@ def main() -> int:
 
     def no_kernel_launched(path):
         """The deep workloads keyswitch through the library route of
-        core/ops, as the reference does, the pim path simulates, and the
-        verify and mesh paths are host analysis and torch ops: no kernel
-        of K1-K7 may launch."""
+        core/ops, as the reference does, the pim path simulates, the
+        verify and mesh paths are host analysis and torch ops, and the llm
+        path reaches no Pallas kernel in the reference: no kernel of K1-K7
+        may launch."""
         paths[path] = launched = {
             k: v.launches for k, v in common.KERNELS.items()}
         if any(launched.values()):
@@ -1240,6 +1508,17 @@ def main() -> int:
                     raise AssertionError(f"{name}: card and CPU differ")
             print(f"  {name}: card and CPU torch.equal ({t_card:.2f} s on "
                   f"the card, {t_host:.2f} s on the CPU)", flush=True)
+
+    with Phase("llm"):
+        common.reset_launches()
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True)
+        llm_phase(torch, dev, smi.stdout.strip().splitlines()[0])
+        torch.cuda.synchronize()
+        no_kernel_launched("llm")
+        torch.cuda.empty_cache()
 
     if set(ORDER) != set(common.KERNELS) or set(ORDER) != set(rows):
         raise AssertionError(f"kernel rows {sorted(rows)} against "

@@ -67,6 +67,11 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch.analysis.mutate, repro_torch.launch.mesh\n"
             "import repro_torch.fhe_dist.collective_bconv\n"
             "import repro_torch.fhe_dist.pipeline_exec\n"
+            "import repro_torch.models, repro_torch.models.model\n"
+            "import repro_torch.configs, repro_torch.launch.serve\n"
+            "from repro_torch.configs import get_config, list_archs\n"
+            "[get_config(a, smoke=s).param_count() for a in list_archs()\n"
+            " for s in (False, True)]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -92,7 +97,11 @@ def test_sources_import_no_reference():
             "analysis/verify_schedule.py", "analysis/pim_hazards.py",
             "analysis/mutate.py", "analysis/lint.py", "fhe_dist/__init__.py",
             "fhe_dist/layout.py", "fhe_dist/collective_bconv.py",
-            "fhe_dist/pipeline_exec.py", "launch/mesh.py"} <= walked
+            "fhe_dist/pipeline_exec.py", "launch/mesh.py",
+            "models/__init__.py", "models/config.py", "models/layers.py",
+            "models/attention.py", "models/moe.py", "models/recurrent.py",
+            "models/model.py", "configs/__init__.py", "configs/qwen3_8b.py",
+            "configs/deepseek_v3_671b.py", "launch/serve.py"} <= walked
     for path in files + [CHIP_SMOKE]:
         bad = imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, (path, bad)
@@ -170,6 +179,27 @@ def test_deep_workloads_refuse_cpu_fallback(monkeypatch):
         Bootstrapper(CkksContext(params), enc, encr, sk)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         linalg.matvec_bsgs(CkksContext(params), ct, diags, gks, enc)
+
+
+def test_llm_serve_refuses_cpu_fallback(monkeypatch, capsys):
+    """The LLM serve entry point and DecodeModel raise without CUDA unless
+    asked for the CPU; asked for the CPU they run there."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import DecodeModel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = ["--arch", "qwen3-8b", "--smoke", "--batch", "1",
+             "--prompt-len", "2", "--gen", "1"]
+    for argv in (small, small + ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeModel(get_config("qwen3-8b", smoke=True))
+    assert serve.main(small + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith(
+        "arch=qwen3-smoke generated (1, 1) tokens")
+    model = DecodeModel(get_config("rwkv6-3b", smoke=True), "cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 def _kernel_calls(device, n=64):
