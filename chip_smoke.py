@@ -69,9 +69,16 @@ non-zero:
    batch's (8, 32768) output on the card, on an nccl group of world size
    1 that the serve starts; on that mesh distributed_bconv (ring and
    all-gather) at S = 6 -> D = 21, N = 65536 with 3221225473 among the
-   destinations, torch.equal to core.rns.bconv and each timed, and 8
-   pipeline rounds within rtol 1e-6 of the sequential composition; the
-   process group is destroyed at the end; no kernel launched;
+   destinations, torch.equal to core.rns.bconv and each timed; the
+   limb-sharded hmul (with rescale) and rotate (core.ops on the basis
+   fhe_dist.limb_ops.LimbShard) at level 20 (l = 21, T = 27, N = 65536, 3221225473 among the special
+   primes; keys and ciphertexts from the port's encryptor) under both
+   BConv schedules, torch.equal to core.ops.hmul / core.ops.rotate, each
+   timed with CUDA events beside core.ops, with its device time and
+   kernels a call from torch.profiler and the card's name and power
+   limit; and 8 pipeline rounds within rtol 1e-6 of the sequential
+   composition; the process group is destroyed at the end; no kernel
+   launched;
 11. linalg — core/linalg at full width (paper_params_bootstrap, one
    ciphertext at level 20): matvec_bsgs over a banded 16-diagonal matrix
    with and without hoisting (6 Galois keys), a degree-31 Chebyshev
@@ -596,11 +603,88 @@ def verify_phase(smoke=False):
                              f"{len(reports)} artifacts")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def limb_sharded_check(torch, dev, mesh, params, card):
+    """The limb-sharded hmul (with rescale) and rotate (core.ops on the
+    basis fhe_dist.limb_ops.LimbShard) on `mesh` at `params`' level
+    LEVEL, under both BConv schedules, torch.equal to core.ops on the
+    whole basis on the same device, each timed beside it (CUDA events,
+    and torch.profiler's device time of one call). Keys and
+    ciphertexts come from the port's encryptor (seed 5; vectors from
+    numpy's rng 2, scale 2^26)."""
+    import torch.distributed as dist
+    from repro_torch.core import ops
+    from repro_torch.core.ciphertext import Plaintext
+    from repro_torch.core.context import CkksContext
+    from repro_torch.core.encoder import CkksEncoder
+    from repro_torch.core.encryptor import CkksEncryptor
+    from repro_torch.fhe_dist import limb_ops as lo
+    ctx = CkksContext(params, dev)
+    encr = CkksEncryptor(ctx, seed=5)
+    sk = encr.keygen()
+    rk = encr.relin_keygen(sk)
+    gk = encr.rotation_keygen(sk, [1])[ctx.rotation_element(1)]
+    enc = CkksEncoder(ctx)
+    rng = np.random.default_rng(2)
+    scale = 2.0 ** 26
+    ct1, ct2 = (encr.encrypt_sk(Plaintext(enc.encode(
+        rng.normal(size=ctx.n // 2) * 0.3, scale, LEVEL), LEVEL, scale), sk)
+        for _ in range(2))
+
+    def ms(fn):
+        """(ms a call between CUDA events, device ms a call, kernels and
+        copies a call) on the card; nan on the CPU."""
+        if dev.type != "cuda":
+            return float("nan"), float("nan"), float("nan")
+        n_ev, busy = device_busy(torch, fn, steps=1)
+        return cuda_ms(torch, fn), busy, n_ev
+
+    want = {"hmul": ops.hmul(ctx, ct1, ct2, rk),
+            "rotate": ops.rotate(ctx, ct1, 1, gk)}
+    times = {("core.ops", "hmul"): ms(lambda: ops.hmul(ctx, ct1, ct2, rk)),
+             ("core.ops", "rotate"): ms(lambda: ops.rotate(ctx, ct1, 1, gk))}
+    for variant in ("ring", "allgather"):
+        sh = lo.LimbShard(mesh, variant)
+        a, b = lo.shard_ciphertext(sh, ct1), lo.shard_ciphertext(sh, ct2)
+        rk_l = lo.shard_key(sh, ctx, rk, LEVEL)
+        gk_l = lo.shard_key(sh, ctx, gk, LEVEL)
+        runs = {"hmul": lambda: ops.hmul(ctx, a, b, rk_l, basis=sh),
+                "rotate": lambda: ops.rotate(ctx, a, 1, gk_l, basis=sh)}
+        for op, run in runs.items():
+            got = lo.gather_ciphertext(sh, run())
+            if not (torch.equal(got.data, want[op].data)
+                    and (got.level, got.scale) == (want[op].level,
+                                                   want[op].scale)):
+                raise AssertionError(f"limb-sharded {op} ({variant}) "
+                                     f"differs from core.ops.{op}")
+            times[(variant, op)] = ms(run)
+    print(f"mesh: limb-sharded hmul (with rescale) and rotate at level "
+          f"{LEVEL}, l = {LEVEL + 1}, T = {LEVEL + 1 + ctx.n_p}, N = "
+          f"{ctx.n} (special primes up to {max(ctx.p_primes)}), world size "
+          f"{mesh.axis_size('model')} on {dist.get_backend()}: ring and "
+          f"allgather torch.equal to core.ops; a call, ms between CUDA "
+          f"events / device ms / kernels and copies ({card}):", flush=True)
+    for op in ("hmul", "rotate"):
+        print("  " + op + ": " + ", ".join(
+            f"{who} {t:.4f} / {busy:.4f} / {n_ev:.0f}"
+            for who in ("ring", "allgather", "core.ops")
+            for t, busy, n_ev in [times[(who, op)]]), flush=True)
+
+
 def mesh_phase(torch, dev, smoke=False):
     """serve_fhe --backend mesh on `dev` (paper parameters; --smoke: the
     CPU rehearsal's point), then, on the world-size-1 mesh that serve
     started (nccl on the card), distributed_bconv in both schedules at the
-    ModUp shape of level 20 against core.rns.bconv, and a pipeline of
+    ModUp shape of level 20 against core.rns.bconv, the limb-sharded hmul
+    and rotate against core.ops (`limb_sharded_check`), and a pipeline of
     rounds against the sequential composition. The process group is
     destroyed at the end, pass or fail."""
     import torch.distributed as dist
@@ -686,6 +770,11 @@ def mesh_phase(torch, dev, smoke=False):
               f"to rns.bconv; ring {times['ring']:.4f} ms, allgather "
               f"{times['allgather']:.4f} ms, rns.bconv "
               f"{times['rns.bconv']:.4f} ms a call", flush=True)
+
+        if not smoke and Q32 not in ctx.p_primes:
+            raise AssertionError(f"{Q32} is not among the special primes")
+        limb_sharded_check(torch, dev, mesh, params,
+                           "cpu rehearsal" if smoke else card_line())
 
         x = torch.from_numpy(np.random.default_rng(1).normal(
             size=(BATCH, 16, 32)).astype(np.float32)).to(dev)
@@ -1511,11 +1600,7 @@ def main() -> int:
 
     with Phase("llm"):
         common.reset_launches()
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True)
-        llm_phase(torch, dev, smi.stdout.strip().splitlines()[0])
+        llm_phase(torch, dev, card_line())
         torch.cuda.synchronize()
         no_kernel_launched("llm")
         torch.cuda.empty_cache()
@@ -1530,11 +1615,7 @@ def main() -> int:
         rows[name]["launches_by_path"] = {p: c[name] for p, c in
                                           paths.items()}
     print(json.dumps({"kernels": [rows[k] for k in ORDER]}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

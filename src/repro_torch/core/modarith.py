@@ -20,7 +20,21 @@ reference's do: then a product of two residues is below 2^62.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def to_i64(x) -> torch.Tensor:
+    """Residues (a tensor, a numpy array of any integer dtype, python ints)
+    as the int64 tensor the port computes on: the counterpart of the
+    reference's ``to_u64``, since CPU torch has no uint64 ``%``. Values
+    must lie below 2^63 (residues are below 2^32)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64)
+    arr = np.asarray(x)
+    if arr.dtype == np.uint64 and arr.size and int(arr.max()) >= 1 << 63:
+        raise ValueError("a value of 2^63 or more does not fit int64")
+    return torch.from_numpy(np.ascontiguousarray(arr.astype(np.int64)))
 
 
 def addmod(a: torch.Tensor, b: torch.Tensor, q) -> torch.Tensor:
@@ -39,6 +53,10 @@ def negmod(a: torch.Tensor, q) -> torch.Tensor:
 def mulmod(a: torch.Tensor, b, q) -> torch.Tensor:
     """(a * b) mod q for 0 <= a, b < q < 2^32."""
     return ((a * (b >> 16)) % q * 65536 + a * (b & 0xFFFF)) % q
+
+
+def powmod_scalar(a: int, e: int, q: int) -> int:
+    return pow(int(a), int(e), int(q))
 
 
 MASK32 = 0xFFFFFFFF

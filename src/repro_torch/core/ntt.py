@@ -149,6 +149,25 @@ def intt(a: torch.Tensor, tables: NttTables) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# reference O(N^2) oracle (tests only)
+# ---------------------------------------------------------------------------
+
+def negacyclic_convolve_ref(a: np.ndarray, b: np.ndarray, p: int
+                            ) -> np.ndarray:
+    """Schoolbook product in Z_p[X]/(X^N+1) on the host; a, b: (N,) ints.
+    Returns int64 residues (p < 2^32)."""
+    n = len(a)
+    out = np.zeros(n, dtype=object)
+    aa = np.asarray(a).astype(object)
+    bb = np.asarray(b).astype(object)
+    for i in range(n):
+        # contribution of b[i]: shift a by i with sign wrap
+        part = np.concatenate([-aa[n - i:], aa[: n - i]]) if i else aa
+        out = (out + part * bb[i]) % p
+    return out.astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
 # Galois automorphisms
 # ---------------------------------------------------------------------------
 

@@ -64,12 +64,48 @@ def bconv(a: torch.Tensor, t: BConvTables) -> torch.Tensor:
     return acc % t.dst_q[:, None]
 
 
+def bconv_matmul(a: torch.Tensor, t: BConvTables) -> torch.Tensor:
+    """BConv as an explicit (S, N) x (S, D) contraction with lazy
+    accumulation, the reference's form for the kernel and MXU mapping:
+    products are summed unreduced and folded mod p every 4 of them. The
+    reference's u64 sum assumes v < 2^31 and w < 2^30 and wraps at the
+    32-bit special prime; here each product is split into 32-bit words
+    (`modarith.mul_wide`) and the sum carries its low word into its high
+    word, so the result equals `bconv` at every prime below 2^32."""
+    v = ma.mulmod(a, t.qhat_inv[:, None], t.src_q[:, None])
+    q = t.dst_q[:, None]
+    r32 = ((1 << 32) % t.dst_q)[:, None]
+    s = v.shape[-2]
+    acc = torch.zeros(a.shape[:-2] + (t.w.shape[1],) + a.shape[-1:],
+                      dtype=torch.int64, device=a.device)
+    run_hi = run_lo = None
+    for j in range(s):
+        hi, lo = ma.mul_wide(v[..., j:j + 1, :], t.w[j][:, None])
+        if run_hi is None:
+            run_hi, run_lo = hi, lo
+        else:
+            lo = run_lo + lo                                   # < 2^33
+            run_hi, run_lo = run_hi + hi + (lo >> 32), lo & ma.MASK32
+        if (j + 1) % 4 == 0 or j == s - 1:                     # fold every 4
+            run = ma.addmod(ma.mulmod(run_hi % q, r32, q), run_lo % q, q)
+            acc = ma.addmod(acc, run, q)
+            run_hi = run_lo = None
+    return acc
+
+
 def mod_down_coeff(a_q: torch.Tensor, a_p_converted: torch.Tensor,
                    p_inv_mod_q: torch.Tensor,
                    q: torch.Tensor) -> torch.Tensor:
     """(a_q - BConv_{P->Q}(a_p)) * P^{-1} mod q. All (..., L, N)."""
     diff = ma.submod(a_q, a_p_converted % q[:, None], q[:, None])
     return ma.mulmod(diff, p_inv_mod_q[:, None], q[:, None])
+
+
+def exact_div_by_last_coeff(a: torch.Tensor, q_last_inv: torch.Tensor,
+                            q: torch.Tensor) -> torch.Tensor:
+    """Rescale core: given a (..., L, N) with the last limb already
+    broadcast-subtracted, multiply by q_last^{-1} mod q_i."""
+    return ma.mulmod(a, q_last_inv[:, None], q[:, None])
 
 
 def crt_lift_centered(limbs: np.ndarray, primes: Sequence[int]) -> np.ndarray:

@@ -129,6 +129,18 @@ class Mesh:
         dist.all_gather(parts, t, group=self._groups[axis])
         return torch.cat(parts, 0)
 
+    def broadcast(self, t: torch.Tensor, axis: str, index: int
+                  ) -> torch.Tensor:
+        """The `t` of the rank at `index` along `axis`, on every rank of
+        the line; the others pass a tensor of the same shape and dtype to
+        receive into."""
+        if self.shape[axis] == 1:
+            return t
+        t = t.contiguous()
+        dist.broadcast(t, src=self._lines[axis][index],
+                       group=self._groups[axis])
+        return t
+
     def all_reduce_sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._groups[axis])
         return t

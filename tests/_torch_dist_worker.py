@@ -15,6 +15,15 @@ Scenarios:
   8 destinations with the 32-bit primes 3221225473 and 4293918721.
 * ``pipeline`` — run_load_save_pipeline on a WORLD-rank `data` ring, two
   rounds (the reference worker's stage functions).
+* ``limb VARIANT DATA MODEL`` — core.ops on the limb-sharded basis
+  (fhe_dist.limb_ops.LimbShard, BConv schedule VARIANT) on a DATA x
+  MODEL mesh: hmul (with rescale),
+  hsquare, rotate and an hmul against a ciphertext switched down to
+  LOW_LEVEL, on the reference worker's hmul inputs (`limb_inputs`), on a
+  batch of two ciphertexts split along `data`, and at a small ring with
+  3221225473 among its special primes; each result gathered, and the
+  rank's own block of hmul. Also distributed_bconv from 12 limbs onto 7,
+  which split over 8 or 4 ranks unevenly.
 """
 import os
 import sys
@@ -69,6 +78,119 @@ def scenario_bconv(variant, data, model):
     return out
 
 
+# the reference worker's limb-sharded hmul parameters (8 Q limbs, 4
+# special limbs, 2 digits of 4), and a small ring whose 8 special primes
+# hold 3221225473 and 4293918721 (one digit of 8)
+REF_PARAMS = dict(log_n=8, log_scale=26, n_levels=7, dnum=2,
+                  first_mod_bits=30, scale_mod_bits=26, special_mod_bits=30)
+WIDE_PARAMS = dict(log_n=6, log_scale=26, n_levels=7, dnum=1,
+                   first_mod_bits=30, scale_mod_bits=26, special_mod_bits=31)
+ROT_STEP = 3
+LOW_LEVEL = 4
+# each scenario of the limb case: (parameters, whether a batch of two)
+LIMB_CASES = {"ref": (REF_PARAMS, False), "batch": (REF_PARAMS, True),
+              "wide": (WIDE_PARAMS, False)}
+LIMB_OPS = ("hmul", "hsquare", "rotate", "low")
+
+
+def limb_inputs(params_kw):
+    """(ctx, rk, gk, ct1, ct2) on the CPU: the reference worker's hmul
+    inputs (CkksEncryptor seed 5, rng 2, scale 2^26 at the top level),
+    then the Galois key of ROT_STEP, drawn after them."""
+    from repro_torch.core.ciphertext import Plaintext
+    from repro_torch.core.context import CkksContext
+    from repro_torch.core.encoder import CkksEncoder
+    from repro_torch.core.encryptor import CkksEncryptor
+    from repro_torch.core.params import CkksParams
+    params = CkksParams(**params_kw)
+    ctx = CkksContext(params, "cpu")
+    enc = CkksEncoder(ctx)
+    encr = CkksEncryptor(ctx, seed=5)
+    sk = encr.keygen()
+    rk = encr.relin_keygen(sk)
+    rng = np.random.default_rng(2)
+    s = ctx.n // 2
+    v1 = rng.normal(size=s) * 0.3
+    v2 = rng.normal(size=s) * 0.3
+    scale = 2.0 ** 26
+    lvl = params.n_levels
+    ct1 = encr.encrypt_sk(Plaintext(enc.encode(v1, scale, lvl), lvl, scale),
+                          sk)
+    ct2 = encr.encrypt_sk(Plaintext(enc.encode(v2, scale, lvl), lvl, scale),
+                          sk)
+    gk = encr.rotation_keygen(sk, [ROT_STEP])[
+        ctx.rotation_element(ROT_STEP)]
+    return ctx, rk, gk, ct1, ct2
+
+
+def limb_operands(ct1, ct2, batch):
+    """The two operands of a limb case: (ct1, ct2), or the batch
+    (ct1, ct2) against (ct2, ct2)."""
+    from repro_torch.core.ciphertext import Ciphertext
+    if not batch:
+        return ct1, ct2
+    return (Ciphertext(torch.stack([ct1.data, ct2.data]), ct1.level,
+                       ct1.scale),
+            Ciphertext(torch.stack([ct2.data, ct2.data]), ct2.level,
+                       ct2.scale))
+
+
+def uneven_bconv_inputs():
+    """(ctx, v, src, dst): 12 limbs (Q and P of REF_PARAMS) onto the 7
+    Q limbs of level 6, v drawn as `bconv_inputs` draws it."""
+    from repro_torch.core.context import CkksContext
+    from repro_torch.core.params import CkksParams
+    ctx = CkksContext(CkksParams(**REF_PARAMS), "cpu")
+    src, dst = ctx.q_idx(7) + ctx.p_idx(), ctx.q_idx(6)
+    rng = np.random.default_rng(0)
+    v = np.stack([rng.integers(0, ctx.primes[i], size=ctx.n, dtype=np.uint64)
+                  for i in src]).astype(np.int64)
+    return ctx, v, src, dst
+
+
+def limb_results(ctx, sh, a, b, rk, gk):
+    """LIMB_OPS of the sharded operands a, b on the basis `sh`, each with
+    its keys sharded by `limb_ops.shard_key`."""
+    from repro_torch.core import ops
+    from repro_torch.fhe_dist import limb_ops as lo
+    top = ctx.params.n_levels
+    rk_top = lo.shard_key(sh, ctx, rk, top)
+    return {"hmul": ops.hmul(ctx, a, b, rk_top, basis=sh),
+            "hsquare": ops.hsquare(ctx, a, rk_top, basis=sh),
+            "rotate": ops.rotate(ctx, a, ROT_STEP,
+                                 lo.shard_key(sh, ctx, gk, top), basis=sh),
+            "low": ops.hmul(ctx, a, ops.mod_switch_to_level(b, LOW_LEVEL, sh),
+                            lo.shard_key(sh, ctx, rk, LOW_LEVEL), basis=sh)}
+
+
+def scenario_limb(variant, data, model):
+    from repro_torch.fhe_dist import limb_ops as lo
+    from repro_torch.fhe_dist.collective_bconv import (bconv_tables_device,
+                                                       distributed_bconv)
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh((data, model), ("data", "model"), torch.device("cpu"))
+    sh = lo.LimbShard(mesh, variant)
+    out = {}
+    for case, (params_kw, batch) in LIMB_CASES.items():
+        ctx, rk, gk, ct1, ct2 = limb_inputs(params_kw)
+        a, b = (lo.shard_ciphertext(sh, c)
+                for c in limb_operands(ct1, ct2, batch))
+        res = limb_results(ctx, sh, a, b, rk, gk)
+        for name, ct in res.items():
+            whole = lo.gather_ciphertext(sh, ct).data
+            if batch:
+                # two ciphertexts split evenly along `data`
+                whole = mesh.all_gather(whole, "data")
+            out[f"{case}_{name}"] = whole
+            out[f"{case}_{name}_meta"] = np.array([ct.level, ct.scale])
+        out[f"{case}_hmul_block"] = res["hmul"].data
+    ctx, v, src, dst = uneven_bconv_inputs()
+    out["bconv_uneven"] = distributed_bconv(
+        torch.from_numpy(v), *bconv_tables_device(ctx, src, dst), mesh,
+        variant=variant, gather=True)
+    return out
+
+
 def pipeline_case(world):
     """(x, rounds): the reference worker's input and stage functions."""
     rng = np.random.default_rng(1)
@@ -99,6 +221,9 @@ def main(argv):
             out = scenario_bconv(variant, data, model)
         elif scenario == "pipeline":
             out = scenario_pipeline(world)
+        elif scenario == "limb":
+            variant, data, model = argv[5], int(argv[6]), int(argv[7])
+            out = scenario_limb(variant, data, model)
         else:
             raise SystemExit(f"unknown scenario {scenario}")
         dist.barrier()
