@@ -112,12 +112,29 @@ non-zero:
    on the CPU from the same weights, logits and every cache leaf within
    1e-4 of the CPU's largest value. No kernel of K1-K7 launches on this
    path.
+15. train — LLM training (models.make_train_step on autograd, train/,
+   data/, launch/train): qwen3-8b at full width (d_model 4096, vocab
+   151936, untied head, bf16, weights from a seeded generator on the
+   card), n_layers cut 36 -> 16 for 80 GB (the `reduced` field), at
+   launch/train's defaults (batch 8, seq 128, lr 3e-4): 1 warm-up and 5
+   timed steps, each ending in a device barrier, with ms a step (median),
+   tok/s, peak memory, every loss (finite), the parameter count, the
+   share of the bf16 dense peak that 6 * N * tokens a step is, and one
+   more step under torch.profiler (CUDA activity only) for the idle share
+   and the kernels that take the device time; then one float32 step at
+   batch 2, seq 32 of every smoke config and of qwen3-8b at full width,
+   depth 1, on the card and on the CPU from the same weights (loss, grad
+   norm, every grad, m, v and the updated parameters where the gradient
+   is not near 0 within 1e-4 of the CPU's largest value); then
+   launch/train --smoke cut after 2 steps and resumed from its checkpoint
+   to 4, torch.equal to an unbroken 4-step run. No kernel of K1-K7
+   launches on this path.
 
 The deep workloads (11-13) keyswitch through the library route, as the
 reference does, and launch no kernel: their counts must stay 0, as must
-the pim, verify, mesh and llm paths'. Launch counts are set to 0 just
-before each of the staged, fig14, serve, fleet, pim, verify, mesh,
-linalg, bootstrap and llm paths and read just after. The fleet and pim
+the pim, verify, mesh, llm and train paths'. Launch counts are set to 0
+just before each of the staged, fig14, serve, fleet, pim, verify, mesh,
+linalg, bootstrap, llm and train paths and read just after. The fleet and pim
 phases write their trace and metrics files (the verify phase its lint
 JSON lines) under build/repro_torch/chip_smoke/ and keep the event log
 in memory. Then a JSON line of per-kernel numbers (all ten kernel rows,
@@ -208,6 +225,25 @@ LLM_CHECKS = (
 )
 LLM_CHECK_STEPS = 4
 LLM_CHECK_TOL = 1e-4    # max |card - CPU| / max |CPU|, float32, no TF32
+
+# the train phase: qwen3-8b at full width (d_model 4096, vocab 151936,
+# untied head) through models.make_train_step at launch/train's defaults
+# (batch 8, seq 128, lr 3e-4), cut in depth to what one card's 80 GB
+# holds. Training keeps ~14 bytes a parameter (bf16 weights and grads, f32
+# m and v, the clipped grads): 1244663808 parameters outside the layers
+# and 192946432 a layer give ~61 GB at 16 layers, ~115 GB at 36.
+TRAIN_ARCH = "qwen3-8b"
+TRAIN_LAYERS = 16
+TRAIN_REDUCED = ["n_layers 36 -> 16: 14 bytes a parameter of training "
+                 "state hold 4.33 B parameters in ~61 GB of 80; 36 layers "
+                 "need ~115 GB"]
+TRAIN_WARMUP, TRAIN_STEPS = 1, 5
+BF16_DENSE_PEAK = 989.4e12   # H100 SXM bf16 dense FLOP/s at 700 W
+# card against CPU: one float32 train step at batch 2, seq 32 of every
+# smoke config and of qwen3-8b at full width and depth 1, held to the CPU
+# tests' limits (tests/test_torch_llm_train.py)
+TRAIN_CHECK_TOL = 1e-4
+TRAIN_FLAT_GRAD = 1e-3  # |g| <= this * max |g|: Adam's sign may flip there
 
 # kernels each driven path must launch, and the path whose count is a
 # kernel's `launches` in the JSON line
@@ -1008,6 +1044,265 @@ def llm_phase(torch, dev, card, smoke=False):
             torch.cuda.empty_cache()
 
 
+def _train_batch(cfg, b=2, s=32):
+    """tests/test_torch_llm_train.py's float32 batch (numpy rng 0)."""
+    rng = np.random.default_rng(0)
+    out = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.xattn_period:
+        out["images"] = rng.normal(
+            size=(b, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec:
+        out["frames"] = rng.normal(size=(b, s, cfg.d_model)).astype(
+            np.float32)
+    return out
+
+
+def train_phase(torch, dev, card, smoke=False):
+    """LLM training (models.make_train_step on autograd, train/, data/,
+    launch/train): qwen3-8b at full width, cut in depth to TRAIN_LAYERS, 1
+    warm-up and TRAIN_STEPS timed steps at launch/train's defaults, one
+    more under torch.profiler (CUDA activity only) for the idle share;
+    then one float32 train step of every smoke config and of qwen3-8b at
+    depth 1 on the card and on the CPU from the same weights; then
+    launch/train --smoke cut after 2 steps and resumed to 4 against an
+    unbroken 4-step run, bit for bit. --smoke (the CPU rehearsal) trains
+    the smoke config and checks only the smoke configs. One process group
+    of world size 1 serves both devices (gloo for CPU tensors, nccl for
+    the card's; the MoE layers' all_to_all runs on it) and is destroyed at
+    the end, pass or fail."""
+    import dataclasses
+    import shutil
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.data.pipeline import SyntheticLMDataset, shard_batch
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.train import optim
+
+    cpu = torch.device("cpu")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    mesh_mod.STORE_DIR.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group(
+        "cpu:gloo,cuda:nccl" if dev.type == "cuda" else "gloo",
+        init_method=f"file://{mesh_mod.STORE_DIR}/train-{os.getpid()}",
+        world_size=1, rank=0)
+    try:
+        mesh = mesh_mod.make_host_mesh(device=dev)
+        cpu_mesh = mesh_mod.Mesh((1, 1), ("data", "model"), cpu)
+
+        # qwen3-8b at full width through the train step
+        t_phase = time.perf_counter()
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH, smoke=smoke),
+                                  **({} if smoke else
+                                     {"n_layers": TRAIN_LAYERS}))
+        args = launch_train.parse_args([])
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        params = M.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        n_params = sum(t.numel() for _, t in M.tree_items(params))
+        if n_params != cfg.param_count():
+            raise AssertionError(f"train: {n_params} parameters, "
+                                 f"param_count() {cfg.param_count()}")
+        opt = optim.adamw_init(params)
+        ds = SyntheticLMDataset(cfg, args.batch, args.seq)
+        step_fn = M.make_train_step(cfg, mesh, learning_rate=args.lr)
+        losses, step_s = [], []
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS + 1):
+            batch = shard_batch(ds.batch_at(i), dev)
+            sync()
+            if i == TRAIN_WARMUP + TRAIN_STEPS and dev.type == "cuda":
+                # one more step under the profiler: the device's share
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    params, opt, metrics = step_fn(params, opt, batch)
+                    sync()
+                    prof_s = time.perf_counter() - t0
+                continue
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batch)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train: losses {losses}")
+        tokens = args.batch * args.seq
+        ms = statistics.median(step_s[TRAIN_WARMUP:]) * 1e3
+        flop = 6 * n_params * tokens
+        row = {"arch": TRAIN_ARCH, "config": cfg.name,
+               "reduced": [] if smoke else TRAIN_REDUCED,
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "vocab": cfg.vocab, "tie_embeddings": cfg.tie_embeddings,
+               "dtype": cfg.dtype, "batch": args.batch, "seq": args.seq,
+               "lr": args.lr, "params": n_params, "tokens_per_step": tokens,
+               "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_STEPS,
+               "ms_per_step": ms,
+               "ms_steps": [t * 1e3 for t in step_s],
+               "tok_s": tokens / ms * 1e3,
+               "losses": losses,
+               "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                            if dev.type == "cuda" else float("nan")),
+               "flop_per_step_6nt": flop,
+               "bf16_dense_peak_flop_s": BF16_DENSE_PEAK,
+               "flop_share": flop / (ms / 1e3) / BF16_DENSE_PEAK,
+               "card": card}
+        if dev.type == "cuda":
+            dev_ev = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_ms = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+            by_kernel = collections.defaultdict(lambda: [0, 0.0])
+            for e in dev_ev:
+                by_kernel[e.name][0] += 1
+                by_kernel[e.name][1] += e.time_range.elapsed_us() / 1e3
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:10]
+            row.update(profiled_step_ms=prof_s * 1e3,
+                       device_events_per_step=len(dev_ev),
+                       device_busy_ms=busy_ms,
+                       idle_share=1 - busy_ms / (prof_s * 1e3),
+                       top_kernels=[{"name": n[:90], "count": c, "ms": t}
+                                    for n, (c, t) in top])
+        print(f"train: {cfg.name} at n_layers {cfg.n_layers}, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab}: {n_params} parameters, "
+              f"batch {args.batch} x seq {args.seq}; {ms:.3f} ms a step "
+              f"(median of {TRAIN_STEPS} after {TRAIN_WARMUP} warm-up, each "
+              f"ending in a device barrier), {row['tok_s']:.1f} tok/s, peak "
+              f"{row['peak_gib']:.2f} GiB, 6·N·tokens at "
+              f"{100 * row['flop_share']:.2f} % of {BF16_DENSE_PEAK / 1e12} "
+              f"TFLOP/s bf16 dense; losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)} [{card}]",
+              flush=True)
+        if "idle_share" in row:
+            print(f"train: one step under torch.profiler (CUDA activity "
+                  f"only): {row['device_events_per_step']} kernels and "
+                  f"copies, {row['device_busy_ms']:.3f} ms of device time "
+                  f"in a {row['profiled_step_ms']:.3f} ms step; idle "
+                  f"{100 * row['idle_share']:.1f} % [{card}]", flush=True)
+        print("train " + json.dumps(row), flush=True)
+        print(f"train: full-width part {time.perf_counter() - t_phase:.1f} "
+              f"s", flush=True)
+        del params, opt, step_fn, metrics, batch
+        free()
+
+        # the card against the CPU: one float32 step from the same weights
+        checks = [(a, True, {}) for a in list_archs()]
+        if not smoke:
+            checks.append((TRAIN_ARCH, False, {"n_layers": 1}))
+        for arch, small, changes in checks:
+            cfg = dataclasses.replace(get_config(arch, smoke=small),
+                                      dtype="float32", **changes)
+            params = M.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            for path, t in M.tree_items(params):
+                if path[-1] == "gate":       # cross attention reaches out
+                    t.fill_(0.5)
+            nb = _train_batch(cfg)
+            sides, side_s = {}, {}
+            for side, d, m in (("card", dev, mesh), ("cpu", cpu, cpu_mesh)):
+                t_side = time.perf_counter()
+                p = M.tree_map(lambda t: t.to(d, copy=True), params)
+                batch = shard_batch(nb, d, torch.float32)
+                paths = [q for q, _ in M.tree_items(p)]
+                leaves = [t.detach().requires_grad_()
+                          for _, t in M.tree_items(p)]
+                loss, _ = M.loss_fn(M.tree_unflatten(paths, leaves), cfg,
+                                    batch, m)
+                grads = torch.autograd.grad(loss, leaves)
+                del leaves, loss
+                p, o, metrics = M.make_train_step(cfg, m)(
+                    p, optim.adamw_init(p), batch)
+                sides[side] = (
+                    dict(zip(paths, grads)),
+                    {f"{k}/{'/'.join(q)}": t for k, tree in
+                     (("params", p), ("m", o["m"]), ("v", o["v"]))
+                     for q, t in M.tree_items(tree)},
+                    {k: float(v) for k, v in metrics.items()})
+                del p, o, batch, grads
+                free()
+                side_s[side] = time.perf_counter() - t_side
+            del params
+            (g_card, s_card, m_card), (g_cpu, s_cpu, m_cpu) = (
+                sides["card"], sides["cpu"])
+            worst = 0.0
+
+            def held(what, a, b, mask=None):
+                """a (the card's) against b (the CPU's), compared on a's
+                device in float32."""
+                nonlocal worst
+                b = b.to(a.device)
+                diff = (a - b).abs()
+                if mask is not None:
+                    diff = diff[mask]
+                err = diff.max().item() if diff.numel() else 0.0
+                scale = max(b.abs().max().item(), 1e-30)
+                if not (bool(torch.isfinite(a).all())
+                        and err <= TRAIN_CHECK_TOL * scale):
+                    raise AssertionError(f"train {cfg.name} {what}: card and "
+                                         f"CPU differ by {err} (max {scale})")
+                worst = max(worst, err / scale)
+
+            for k in m_cpu:
+                held(k, torch.tensor(m_card[k]), torch.tensor(m_cpu[k]))
+            for q, g in g_cpu.items():
+                held(f"grad {'/'.join(q)}", g_card[q], g)
+            for key, t in s_cpu.items():
+                mask = None
+                if key.startswith("params/"):
+                    g = g_cpu[tuple(key.split("/")[1:])].to(dev).abs()
+                    mask = g > TRAIN_FLAT_GRAD * g.max()
+                held(key, s_card[key], t, mask)
+            cut = "" if small else f", full width, n_layers {cfg.n_layers}"
+            print(f"train: {cfg.name} float32{cut}, one step at batch 2 x "
+                  f"seq 32: card and CPU loss, grad norm, every grad, "
+                  f"updated parameter (where |g| > {TRAIN_FLAT_GRAD} max "
+                  f"|g|), m and v within {TRAIN_CHECK_TOL} of the CPU's "
+                  f"largest value (worst {worst:.2e}; {side_s['card']:.1f} "
+                  f"s on the card, {side_s['cpu']:.1f} s on the CPU)",
+                  flush=True)
+            del sides, g_card, s_card, g_cpu, s_cpu
+            free()
+
+        # checkpoint and resume through the entry point
+        t_resume = time.perf_counter()
+        ck = os.path.join(OUT_DIR, "train_ckpt")
+        shutil.rmtree(ck, ignore_errors=True)
+        base = ["--arch", TRAIN_ARCH, "--smoke", "--ckpt-every", "2",
+                "--log-every", "1", "--device", dev.type]
+        whole = launch_train.main(base + ["--steps", "4", "--ckpt-dir",
+                                          os.path.join(ck, "whole")])
+        launch_train.main(base + ["--steps", "2", "--ckpt-dir",
+                                  os.path.join(ck, "cut")])
+        resumed = launch_train.main(base + ["--steps", "4", "--ckpt-dir",
+                                            os.path.join(ck, "cut"),
+                                            "--resume"])
+        same = resumed.start == 2 and all(
+            qa == qb and torch.equal(a, b) for tree in ("params", "opt_state")
+            for (qa, a), (qb, b) in zip(
+                M.tree_items(getattr(whole, tree)),
+                M.tree_items(getattr(resumed, tree))))
+        if not same or whole.history[2:] != resumed.history:
+            raise AssertionError("train: the run resumed at step "
+                                 f"{resumed.start} differs from the "
+                                 f"unbroken one")
+        print(f"train: launch/train --smoke on {dev.type}, cut after 2 steps "
+              f"and resumed from its checkpoint to 4: parameters and AdamW "
+              f"state torch.equal to an unbroken 4-step run "
+              f"({time.perf_counter() - t_resume:.1f} s)", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1603,6 +1898,13 @@ def main() -> int:
         llm_phase(torch, dev, card_line())
         torch.cuda.synchronize()
         no_kernel_launched("llm")
+        torch.cuda.empty_cache()
+
+    with Phase("train"):
+        common.reset_launches()
+        train_phase(torch, dev, card_line())
+        torch.cuda.synchronize()
+        no_kernel_launched("train")
         torch.cuda.empty_cache()
 
     if set(ORDER) != set(common.KERNELS) or set(ORDER) != set(rows):

@@ -145,6 +145,42 @@ class Mesh:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._groups[axis])
         return t
 
+    def all_reduce_max(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._groups[axis])
+        return t
+
+    def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Split dim 0 of `t` into one block a rank along `axis`; send
+        block j to rank j and return, in the same shape, the blocks
+        received, in rank order. Differentiable: its gradient is the same
+        exchange of the output's gradient."""
+        if t.shape[0] % self.shape[axis]:
+            raise ValueError(f"dim 0 of {tuple(t.shape)} does not split "
+                             f"over {self.shape[axis]} ranks")
+        return _AllToAll.apply(t, self._groups[axis])
+
+
+def _exchange(t: torch.Tensor, group) -> torch.Tensor:
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """all_to_all as a linear map: block (i -> j) of the input becomes
+    block (j <- i) of the output, a permutation that is its own
+    transpose, so the backward pass is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _exchange(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group), None
+
 
 def _init_local_group(device: torch.device) -> None:
     """A process group of world size 1 in this process, through a file

@@ -1,8 +1,10 @@
-"""Self-attention decode: GQA (with qk-norm and sliding window) and MLA
-(DeepSeek multi-head latent attention).
+"""Self-attention blocks: GQA (with qk-norm and sliding window) and MLA
+(DeepSeek multi-head latent attention), with train/prefill and decode
+paths.
 
-The PyTorch counterpart of the decode half of ``repro.models.attention``
-(the train/prefill forwards come with the training slice).
+The PyTorch counterpart of ``repro.models.attention``. The sequence
+forms run the reference's chunked flash attention (chunks of
+min(1024, S)), so their float order follows the reference's.
 
 Decode caches:
 * GQA/local: (k, v) each (B, Hkv, S_max, dh) — standard KV cache.
@@ -29,6 +31,28 @@ def _positions(b: int, pos: int, device):
 # ---------------------------------------------------------------------------
 # GQA
 # ---------------------------------------------------------------------------
+
+def gqa_forward(x, p, cfg: ArchConfig, positions):
+    """x (B, S, D), positions (B, S) -> (out (B, S, D), (k, v) each
+    (B, Hkv, S, dh))."""
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_angles(positions, dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin).transpose(1, 2)
+    k = apply_rope(k, cos, sin).transpose(1, 2)
+    v = v.transpose(1, 2)
+    window = cfg.local_window if cfg.attention == "local" else 0
+    o = flash_attention(q, k, v, causal=True, chunk=min(1024, s),
+                        window=window)
+    o = o.transpose(1, 2).reshape(b, s, h * dh)
+    return torch.einsum("bse,ed->bsd", o, p["wo"]), (k, v)
+
 
 def gqa_decode(x, p, cfg: ArchConfig, cache: Tuple, pos):
     """x: (B, 1, D); cache (k,v): (B, Hkv, S, dh) with `pos` filled."""
@@ -97,6 +121,13 @@ def _mla_attend(q, latent, p, cfg: ArchConfig, cur_pos=None):
         o = flash_attention(qh, kh, vh, causal=True, chunk=min(1024, sq))
     b = q.shape[0]
     return o.transpose(1, 2).reshape(b, sq, h * dv)
+
+
+def mla_forward(x, p, cfg: ArchConfig, positions):
+    """x (B, S, D) -> (out (B, S, D), latent (B, S, kv_lora + qk_rope))."""
+    q, latent = _mla_qkv(x, p, cfg, positions)
+    o = _mla_attend(q, latent, p, cfg)
+    return torch.einsum("bse,ed->bsd", o, p["wo"]), latent
 
 
 def mla_decode(x, p, cfg: ArchConfig, latent_cache, pos):

@@ -1,14 +1,18 @@
-"""ArchConfig-driven model assembly for decode: parameter schemas (with
-logical sharding axes kept as data), random init, decode caches and the
+"""ArchConfig-driven model assembly: parameter schemas (with logical
+sharding axes kept as data), random init, the train/prefill forward, the
+loss and the AdamW train step on autograd, decode caches and the
 one-token decode step for every assigned architecture family.
 
-The PyTorch counterpart of the serving half of ``repro.models.model``.
-The parameter and cache trees are the reference's: the same nested keys
-and shapes, with layers stacked on axis 0. Where the reference scans over
-the stacked layers, this module loops over the layer index and works on
-views of one layer, so a cache is updated in place. The train/prefill
-forward, the loss and the step builders for them come with the training
-slice.
+The PyTorch counterpart of ``repro.models.model``. The parameter and
+cache trees are the reference's: the same nested keys and shapes, with
+layers stacked on axis 0. Where the reference scans over the stacked
+layers, this module loops over them: decode works on views of one layer
+(`_layer`), so a cache is updated in place; the forward takes every
+layer's views from one unbind a leaf (`_layers`), so the backward pass
+writes a stacked leaf's gradient once, the layers' gradients side by
+side, as the reference's scan does. The reference's `jax.checkpoint`
+(its "full" remat policy) is `torch.utils.checkpoint` on the same block
+bodies: a block's activations are recomputed in the backward pass.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.context import resolve_device
 from repro_torch.models import attention as attn
@@ -54,9 +60,27 @@ def tree_items(tree, prefix: Tuple[str, ...] = ()) -> Iterator:
         yield prefix, tree
 
 
+def tree_unflatten(paths, leaves):
+    """The nested-dict tree with `leaves` at `paths` (tree_items order)."""
+    out: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def _layer(tree, i: int):
     """Views of layer i of a stacked subtree."""
     return tree_map(lambda t: t[i], tree)
+
+
+def _layers(tree):
+    """The per-layer views of a stacked subtree, every leaf unbound once."""
+    parts = tree_map(torch.unbind, tree)
+    n = len(next(tree_items(parts))[1])
+    return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -307,15 +331,39 @@ def _mlp(x, bp, cfg):
     return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
 
 
-def _moe_layer(x, bp, cfg):
-    """x (B,S,D) -> (B,S,D), aux: the psum schedule at one rank, which is
-    what the reference's decode runs on its (1, 1) host mesh."""
+def _self_attn(x, bp, cfg, positions):
+    h = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
+    if cfg.attention == "mla":
+        o, kv = attn.mla_forward(h, bp["attn"], cfg, positions)
+    else:
+        o, kv = attn.gqa_forward(h, bp["attn"], cfg, positions)
+    return x + o, kv
+
+
+def _moe_layer(x, bp, cfg, mesh, variant="auto"):
+    """x (B,S,D) -> (B,S,D), aux. "auto" chooses all_to_all when the
+    tokens split evenly over the data-parallel and model ranks with at
+    least 8 a rank, else the psum schedule (the reference's rule);
+    decode asks for "psum", which needs no mesh (None). The port runs the
+    model on one rank: every expert and every token is on it."""
     b, s, d = x.shape
     h = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps)
+    tokens = h.reshape(b * s, d)
     m = bp["moe"]
-    out, aux = moe_mod.moe_psum(
-        h.reshape(b * s, d),
-        {k: m[k] for k in ("w_router", "w_gate", "w_up", "w_down")}, cfg)
+    experts = {k: m[k] for k in ("w_router", "w_gate", "w_up", "w_down")}
+    ranks = 1
+    if mesh is not None:
+        ranks = math.prod(mesh.shape.values())
+        if ranks != 1:
+            raise ValueError(f"the MoE layer runs on one rank; the mesh "
+                             f"{mesh.shape} has {ranks}")
+    use_a2a = (variant == "a2a" or
+               (variant == "auto" and (b * s) % ranks == 0
+                and (b * s) // ranks >= 8))
+    if use_a2a:
+        out, aux = moe_mod.moe_all_to_all(tokens, experts, cfg, mesh)
+    else:
+        out, aux = moe_mod.moe_psum(tokens, experts, cfg)
     out = out.reshape(b, s, d)
     if cfg.n_shared_experts:
         sh = m["shared"]
@@ -324,6 +372,249 @@ def _moe_layer(x, bp, cfg):
         dn = m["dense"]
         out = out + swiglu(h, dn["w_gate"], dn["w_up"], dn["w_down"])
     return x + out, aux
+
+
+# ---------------------------------------------------------------------------
+# forward (training / prefill)
+# ---------------------------------------------------------------------------
+
+def _remat(f):
+    """The reference's jax.checkpoint ("full"): keep only the block's
+    inputs and recompute its activations in the backward pass."""
+    return lambda *args: checkpoint(f, *args, use_reentrant=False)
+
+
+def _scan(f, x, stacked):
+    """x through f(x, layer) for every layer of a stacked subtree; the
+    per-layer outputs in a list."""
+    outs = []
+    for bp in _layers(stacked):
+        x, o = f(x, bp)
+        outs.append(o)
+    return x, outs
+
+
+def _stack_outs(outs):
+    """A list of per-layer outputs (tensors, tuples of them, or None)
+    stacked on a new leading axis, as the reference's scan returns them."""
+    first = outs[0] if outs else None
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return tuple(_stack_outs([o[i] for o in outs])
+                     for i in range(len(first)))
+    return torch.stack(outs)
+
+
+def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
+            collect_cache: bool = False):
+    """Returns (logits, mtp_logits, aux_loss, cache_or_None).
+
+    batch: tokens (B,S) [+ images (B,Timg,D) | frames (B,Senc,D)]. `mesh`
+    (a launch.mesh.Mesh of one rank) carries the MoE layers' all_to_all.
+    """
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = F.embedding(tokens, params["embed"]).to(dtype_of(cfg))
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    aux_total = torch.zeros((), dtype=F32, device=x.device)
+    caches: Dict[str, Any] = {}
+
+    def dense_block(h, bp):
+        h, kv = _self_attn(h, bp, cfg, positions)
+        return _mlp(h, bp, cfg), kv
+
+    if cfg.enc_dec:
+        frames = batch["frames"].to(x.dtype)
+        enc_pos = torch.arange(frames.shape[1], dtype=torch.int32,
+                               device=x.device).expand(frames.shape[:2])
+
+        def enc_block(h, bp):
+            hn = rmsnorm(h, bp["attn_norm"], cfg.norm_eps)
+            o, _ = attn.gqa_forward(hn, bp["attn"], cfg, enc_pos)
+            return _mlp(h + o, bp, cfg), None
+
+        enc_x, _ = _scan(_remat(enc_block), frames, params["enc_blocks"])
+        memory = rmsnorm(enc_x, params["enc_final_norm"], cfg.norm_eps)
+
+        def dec_block(h, bp):
+            h, kv = _self_attn(h, bp, cfg, positions)
+            hx = rmsnorm(h, bp["xattn_norm"], cfg.norm_eps)
+            g = torch.tanh(bp["xattn"]["gate"].to(F32)).to(h.dtype)
+            h = h + g * cross_attention(hx, memory, bp["xattn"], cfg)
+            return _mlp(h, bp, cfg), kv
+
+        x, kvs = _scan(_remat(dec_block), x, params["dec_blocks"])
+        if collect_cache:
+            caches = {"self_kv": _stack_outs(kvs), "memory": memory}
+
+    elif cfg.xattn_period:
+        images = batch["images"].to(x.dtype)
+
+        def superblock(h, sbp):
+            h, kvs = _scan(_remat(dense_block), h, sbp["self"])
+            cb = sbp["cross"]
+            hn = rmsnorm(h, cb["attn_norm"], cfg.norm_eps)
+            g = torch.tanh(cb["attn"]["gate"].to(F32)).to(h.dtype)
+            h = h + g * cross_attention(hn, images, cb["attn"], cfg)
+            h = h + swiglu(rmsnorm(h, cb["mlp_norm"], cfg.norm_eps),
+                           cb["mlp"]["w_gate"], cb["mlp"]["w_up"],
+                           cb["mlp"]["w_down"])
+            return h, kvs
+
+        x, kvs = _scan(superblock, x, params["superblocks"])
+        if collect_cache:
+            caches = {"self_kv": _stack_outs([_stack_outs(k) for k in kvs]),
+                      "images": images}
+
+    elif cfg.rwkv:
+        def rwkv_block(h, bp):
+            o, (st, xl) = rec.rwkv_time_mix(
+                rmsnorm(h, bp["ln1"], cfg.norm_eps), bp["time_mix"], cfg)
+            h = h + o
+            o, xl2 = rec.rwkv_channel_mix(
+                rmsnorm(h, bp["ln2"], cfg.norm_eps), bp["channel_mix"], cfg)
+            return h + o, (st, xl, xl2)
+
+        x, states = _scan(_remat(rwkv_block), x, params["blocks"])
+        if collect_cache:
+            caches = {"states": _stack_outs(states)}
+
+    elif cfg.rglru:
+        pat = cfg.block_pattern or ("rglru", "rglru", "attn")
+
+        def one_layer(h, bp, kind):
+            if kind == "rglru":
+                hn = rmsnorm(h, bp["attn_norm"], cfg.norm_eps)
+                o, st = rec.rglru_block(hn, bp["attn"], cfg)
+                return _mlp(h + o, bp, cfg), st
+            h, kv = _self_attn(h, bp, cfg, positions)
+            return _mlp(h, bp, cfg), kv
+
+        def superblock(h, sbp):
+            sts = []
+            for i, kind in enumerate(pat):
+                h, st = _remat(lambda hh, bp, kind=kind: one_layer(
+                    hh, bp, kind))(h, sbp[f"l{i}_{kind}"])
+                sts.append(st)
+            return h, tuple(sts)
+
+        x, states = _scan(superblock, x, params["superblocks"])
+        tail_states = []
+        n_super = cfg.n_layers // len(pat)
+        for i in range(cfg.n_layers - n_super * len(pat)):
+            x, st = one_layer(x, params[f"tail_{i}"], pat[i])
+            tail_states.append(st)
+        if collect_cache:
+            caches = {"states": _stack_outs(states),
+                      "tail_states": tuple(tail_states)}
+
+    elif cfg.n_experts:
+        kv_dense = None
+        if cfg.first_k_dense:
+            x, kv_dense = _scan(_remat(dense_block), x,
+                                params["dense_blocks"])
+
+        def moe_block(h, bp):
+            h, kv = _self_attn(h, bp, cfg, positions)
+            h, aux = _moe_layer(h, bp, cfg, mesh)
+            return h, (kv, aux)
+
+        x, outs = _scan(_remat(moe_block), x, params["moe_blocks"])
+        aux_total = aux_total + torch.sum(torch.stack([a for _, a in outs]))
+        if collect_cache:
+            caches = {"kv_dense": (_stack_outs(kv_dense)
+                                   if kv_dense is not None else None),
+                      "kv_moe": _stack_outs([kv for kv, _ in outs])}
+
+    else:
+        x, kvs = _scan(_remat(dense_block), x, params["blocks"])
+        if collect_cache:
+            caches = {"kv": _stack_outs(kvs)}
+
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"])
+    logits = torch.einsum("bsd,dv->bsv", x, head)
+
+    mtp_logits = None
+    if cfg.mtp:
+        h2 = rmsnorm(x, params["mtp_norm"], cfg.norm_eps)
+        h2, _ = _self_attn(h2, params["mtp_block"], cfg, positions)
+        h2 = _mlp(h2, params["mtp_block"], cfg)
+        mtp_logits = torch.einsum("bsd,dv->bsv", h2, head)
+
+    return logits, mtp_logits, aux_total, (caches if collect_cache else None)
+
+
+# ---------------------------------------------------------------------------
+# losses / train step
+# ---------------------------------------------------------------------------
+
+def _ce(logits, labels):
+    """CE without materializing (B,S,V) f32 log-probs: gather the label
+    logit first, reduce the logsumexp in f32 on the fly."""
+    label_logit = torch.gather(logits, -1, labels[..., None].long())[
+        ..., 0].to(F32)
+    m = logits.amax(-1).to(F32)
+    lse = m + torch.log(torch.sum(torch.exp(logits.to(F32) - m[..., None]),
+                                  dim=-1))
+    return torch.mean(lse - label_logit)
+
+
+def loss_fn(params, cfg: ArchConfig, batch, mesh):
+    logits, mtp_logits, aux, _ = forward(params, cfg, batch, mesh)
+    labels = batch["labels"]
+    loss = _ce(logits, labels)
+    metrics = {"ce": loss}
+    if cfg.n_experts:
+        loss = loss + cfg.router_aux_weight * aux
+        metrics["aux"] = aux
+    if cfg.mtp and mtp_logits is not None:
+        # MTP head predicts token t+2: shift labels one extra step left
+        mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+        mtp_loss = _ce(mtp_logits[:, :-1], mtp_labels[:, :-1])
+        loss = loss + 0.3 * mtp_loss
+        metrics["mtp_ce"] = mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def make_train_step(cfg: ArchConfig, mesh, learning_rate: float = 3e-4,
+                    weight_decay: float = 0.1, grad_clip: float = 1.0):
+    """Returns train_step(params, opt_state, batch) -> (params, opt,
+    metrics): the gradient of loss_fn over every parameter leaf, clipped
+    by global norm, then train.optim's AdamW. The parameters and the
+    optimizer state are updated in place and returned, so a step holds
+    one copy of them."""
+    from repro_torch.train.optim import adamw_update, clip_by_global_norm
+
+    def train_step(params, opt_state, batch):
+        paths = [path for path, _ in tree_items(params)]
+        leaves = [t.detach().requires_grad_() for _, t in tree_items(params)]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(tree_unflatten(paths, leaves), cfg, batch,
+                                    mesh)
+            grads = torch.autograd.grad(loss, leaves)
+        del leaves, loss
+        grads, gnorm = clip_by_global_norm(tree_unflatten(paths, grads),
+                                           grad_clip)
+        params, opt_state = adamw_update(params, grads, opt_state,
+                                         lr=learning_rate, wd=weight_decay)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = gnorm
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_prefill_step(cfg: ArchConfig, mesh):
+    def prefill_step(params, batch):
+        logits, _, _, caches = forward(params, cfg, batch, mesh,
+                                       collect_cache=True)
+        return logits[:, -1], caches
+    return prefill_step
 
 
 # ---------------------------------------------------------------------------
@@ -503,7 +794,7 @@ def decode_forward(params, cfg: ArchConfig, cache, tokens, pos):
             bp = _layer(params[blocks_key], i)
             x = mla_dec(x, bp, cache["moe"][i])
             if cfg.n_experts:
-                x, _ = _moe_layer(x, bp, cfg)
+                x, _ = _moe_layer(x, bp, cfg, None, variant="psum")
             else:
                 x = _mlp(x, bp, cfg)
 
@@ -583,7 +874,7 @@ def decode_forward(params, cfg: ArchConfig, cache, tokens, pos):
             hn = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
             o, _ = attn.gqa_decode(hn, bp["attn"], cfg,
                                    (cache["k"][i], cache["v"][i]), pos)
-            x, _ = _moe_layer(x + o, bp, cfg)
+            x, _ = _moe_layer(x + o, bp, cfg, None, variant="psum")
 
     else:
         for i in range(cfg.n_layers):

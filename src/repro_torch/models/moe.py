@@ -1,20 +1,24 @@
-"""Token-choice top-k Mixture of Experts, the decode schedule at one rank.
+"""Token-choice top-k Mixture of Experts: the two dispatch schedules.
 
-The PyTorch counterpart of ``repro.models.moe``'s `router`,
-`_dispatch_indices`, `expert_ffn` and `moe_psum` (the schedule decode
-uses), plus `moe_reference` as a test oracle. `moe_all_to_all` comes with
-the training slice.
+The PyTorch counterpart of ``repro.models.moe``: `router`,
+`_dispatch_indices`, `expert_ffn`, `moe_psum`, `moe_all_to_all` and
+`moe_reference` (a test oracle).
 
-`moe_psum` is the reference's shard_map body at one rank, the (1, 1)
-host mesh the reference's decode runs on: the rank holds every expert and
-the psum is the identity.
+* `moe_psum` is the reference's shard_map body at one rank, the (1, 1)
+  host mesh the reference's decode runs on: the rank holds every expert
+  and the psum is the identity.
+* `moe_all_to_all` (training/prefill) puts each expert's slots in a
+  per-expert buffer and moves them to the experts' owners with one
+  all_to_all along the mesh's `model` axis (`Mesh.all_to_all`, which has
+  a gradient: the reverse exchange); a second all_to_all brings the
+  outputs back. At one rank both schedules compute the same values.
 
 Dispatch is capacity based (capacity_factor, overflow dropped) and ranked
 by a cumsum over the flattened (T*k) slots, as in the reference. The
 reference's out-of-range scatter (mode="drop") and gather (mode="fill")
 become a dump row: a dropped slot is scattered to one extra row past the
 buffer and gathered from a zero row there, so no index wraps and no host
-sync is needed.
+sync is needed; a dropped slot's gradient is 0, as in the reference.
 """
 from __future__ import annotations
 
@@ -73,26 +77,64 @@ def capacity_of(t: int, cfg: ArchConfig) -> int:
     return max(int(t * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 4)
 
 
-def moe_psum(x, p, cfg: ArchConfig):
-    """x (T, D) -> (combined (T, D), aux), every expert on this rank."""
-    t, d = x.shape
-    e = cfg.n_experts
-    weights, ids, aux, _ = router(x, p["w_router"], cfg.top_k)
-    capacity = capacity_of(t, cfg)
+def _dispatch(x, ids, e: int, capacity: int, top_k_: int):
+    """The (E, capacity, D) buffer of each expert's slots and each (token,
+    k-slot)'s row in it (the dump row E * capacity where dropped)."""
+    d = x.shape[1]
     pos, keep = _dispatch_indices(ids, e, capacity)
     dump = e * capacity
     slot = torch.where(keep, ids.reshape(-1) * capacity + pos,
                        torch.full_like(pos, dump))
-    xk = torch.repeat_interleave(x, cfg.top_k, dim=0)        # (T*k, D)
+    xk = torch.repeat_interleave(x, top_k_, dim=0)           # (T*k, D)
     buf = x.new_zeros((dump + 1, d))
     buf[slot] = xk                                           # drop -> dump row
-    out_buf = expert_ffn(buf[:dump].reshape(e, capacity, d),
-                         p["w_gate"], p["w_up"], p["w_down"])
-    out_rows = torch.cat([out_buf.reshape(dump, d), x.new_zeros((1, d))])
+    return buf[:dump].reshape(e, capacity, d), slot
+
+
+def _combine(out_buf, slot, weights, x):
+    """Gather each slot's expert output (0 where dropped) and sum a
+    token's top-k slots with the router's weights."""
+    t, k = weights.shape
+    d = x.shape[1]
+    out_rows = torch.cat([out_buf.reshape(-1, d), x.new_zeros((1, d))])
     gathered = out_rows[slot]                                # fill -> 0
-    combined = (gathered.reshape(t, cfg.top_k, d)
-                * weights[..., None]).sum(dim=1)
-    return combined.to(x.dtype), aux
+    combined = (gathered.reshape(t, k, d) * weights[..., None]).sum(dim=1)
+    return combined.to(x.dtype)
+
+
+def moe_psum(x, p, cfg: ArchConfig):
+    """x (T, D) -> (combined (T, D), aux), every expert on this rank."""
+    t, _ = x.shape
+    weights, ids, aux, _ = router(x, p["w_router"], cfg.top_k)
+    buf, slot = _dispatch(x, ids, cfg.n_experts, capacity_of(t, cfg),
+                          cfg.top_k)
+    out_buf = expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"])
+    return _combine(out_buf, slot, weights, x), aux
+
+
+def moe_all_to_all(x, p, cfg: ArchConfig, mesh, axis: str = "model"):
+    """x (T_local, D): this rank's tokens; p's expert weights hold this
+    rank's E_local = E / (ranks along `axis`) experts. Each expert's slots
+    go to its owner with one all_to_all and its outputs come back with
+    another. -> (combined (T_local, D), aux)."""
+    t, d = x.shape
+    e = cfg.n_experts
+    e_local = p["w_gate"].shape[0]
+    n = mesh.axis_size(axis)
+    if e_local * n != e:
+        raise ValueError(f"{e_local} local experts on each of {n} ranks "
+                         f"along {axis!r}; the config has {e}")
+    weights, ids, aux, _ = router(x, p["w_router"], cfg.top_k)
+    capacity = capacity_of(t, cfg)
+    buf, slot = _dispatch(x, ids, e, capacity, cfg.top_k)
+    # (E, C, D): rank j's experts to rank j; what rank i sends lands in
+    # columns i*C..(i+1)*C of (E_local, n*C, D)
+    buf = mesh.all_to_all(buf, axis).reshape(n, e_local, capacity, d)
+    buf = buf.transpose(0, 1).reshape(e_local, n * capacity, d)
+    out_buf = expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"])
+    out_buf = out_buf.reshape(e_local, n, capacity, d).transpose(0, 1)
+    out_buf = mesh.all_to_all(out_buf.reshape(e, capacity, d), axis)
+    return _combine(out_buf, slot, weights, x), aux
 
 
 def moe_reference(x, p_full, cfg: ArchConfig):

@@ -24,6 +24,11 @@ Scenarios:
   3221225473 among its special primes; each result gathered, and the
   rank's own block of hmul. Also distributed_bconv from 12 limbs onto 7,
   which split over 8 or 4 ranks unevenly.
+* ``moe`` — models.moe.moe_all_to_all on a (1, WORLD) mesh: each rank
+  routes its own block of `moe_inputs`' tokens and holds its block of
+  the experts; the output, the aux loss and the gradients of
+  sum(out ** 2) + aux with respect to the rank's tokens, router and
+  experts.
 """
 import os
 import sys
@@ -208,6 +213,53 @@ def scenario_pipeline(world):
     return {"out": run_load_save_pipeline(rounds, torch.from_numpy(x), mesh)}
 
 
+def moe_inputs(world):
+    """(cfg, x (16 * WORLD, D), expert weights of all experts): the
+    deepseek smoke config in float32, 16 tokens a rank routed mostly to
+    expert 3 (capacity 5 a rank: slots are dropped)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b", smoke=True),
+                              dtype="float32")
+    rng = np.random.default_rng(12)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    p = {"w_router": rng.normal(size=(d, e)),
+         "w_gate": 0.1 * rng.normal(size=(e, d, f)),
+         "w_up": 0.1 * rng.normal(size=(e, d, f)),
+         "w_down": 0.1 * rng.normal(size=(e, f, d))}
+    p["w_router"][:, 3] += 0.5
+    x = rng.normal(size=(16 * world, d)) + 0.5
+    return cfg, x.astype(np.float32), {k: v.astype(np.float32)
+                                       for k, v in p.items()}
+
+
+def moe_run(fn, x, p):
+    """fn(x, p) -> (out, aux) and the gradients of sum(out ** 2) + aux
+    with respect to x and every weight, as numpy."""
+    xs = torch.tensor(x, requires_grad=True)
+    ps = {k: torch.tensor(v, requires_grad=True) for k, v in p.items()}
+    out, aux = fn(xs, ps)
+    grads = torch.autograd.grad((out * out).sum() + aux,
+                                [xs] + list(ps.values()))
+    res = {"out": out.detach().numpy(), "aux": aux.detach().numpy()}
+    res.update({f"g_{k}": g.numpy() for k, g in
+                zip(["x"] + list(ps), grads)})
+    return res
+
+
+def scenario_moe(world):
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.moe import moe_all_to_all
+    mesh = Mesh((1, world), ("data", "model"), torch.device("cpu"))
+    cfg, x, p = moe_inputs(world)
+    r = mesh.axis_index("model")
+    t, e_l = x.shape[0] // world, cfg.n_experts // world
+    mine = {k: (v if k == "w_router" else v[r * e_l:(r + 1) * e_l])
+            for k, v in p.items()}
+    return moe_run(lambda xs, ps: moe_all_to_all(xs, ps, cfg, mesh),
+                   x[r * t:(r + 1) * t], mine)
+
+
 def main(argv):
     scenario, world, rank, store, out_dir = argv[:5]
     world, rank = int(world), int(rank)
@@ -224,6 +276,8 @@ def main(argv):
         elif scenario == "limb":
             variant, data, model = argv[5], int(argv[6]), int(argv[7])
             out = scenario_limb(variant, data, model)
+        elif scenario == "moe":
+            out = scenario_moe(world)
         else:
             raise SystemExit(f"unknown scenario {scenario}")
         dist.barrier()

@@ -69,6 +69,9 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch.fhe_dist.pipeline_exec\n"
             "import repro_torch.models, repro_torch.models.model\n"
             "import repro_torch.configs, repro_torch.launch.serve\n"
+            "import repro_torch.launch.train, repro_torch.data.pipeline\n"
+            "import repro_torch.train.optim, repro_torch.train.checkpoint\n"
+            "import repro_torch.train.fault, repro_torch.train.compress\n"
             "from repro_torch.configs import get_config, list_archs\n"
             "[get_config(a, smoke=s).param_count() for a in list_archs()\n"
             " for s in (False, True)]\n"
@@ -101,7 +104,10 @@ def test_sources_import_no_reference():
             "models/__init__.py", "models/config.py", "models/layers.py",
             "models/attention.py", "models/moe.py", "models/recurrent.py",
             "models/model.py", "configs/__init__.py", "configs/qwen3_8b.py",
-            "configs/deepseek_v3_671b.py", "launch/serve.py"} <= walked
+            "configs/deepseek_v3_671b.py", "launch/serve.py",
+            "launch/train.py", "data/__init__.py", "data/pipeline.py",
+            "train/__init__.py", "train/optim.py", "train/checkpoint.py",
+            "train/fault.py", "train/compress.py"} <= walked
     for path in files + [CHIP_SMOKE]:
         bad = imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, (path, bad)
@@ -200,6 +206,25 @@ def test_llm_serve_refuses_cpu_fallback(monkeypatch, capsys):
         "arch=qwen3-smoke generated (1, 1) tokens")
     model = DecodeModel(get_config("rwkv6-3b", smoke=True), "cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_llm_train_refuses_cpu_fallback(monkeypatch, capsys, tmp_path):
+    """The LLM train entry point raises without CUDA unless asked for the
+    CPU, and starts no process group before it raises; asked for the CPU
+    it trains there and leaves no group behind."""
+    from repro_torch.launch import train
+    from repro_torch.models.model import tree_items
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = ["--arch", "qwen3-8b", "--smoke", "--batch", "1", "--seq", "4",
+             "--steps", "1", "--ckpt-dir", str(tmp_path)]
+    for argv in (small, small + ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(argv)
+    assert not torch.distributed.is_initialized()
+    res = train.main(small + ["--device", "cpu"])
+    assert capsys.readouterr().out.startswith("arch=qwen3-smoke params~")
+    assert len(res.history) == 1 and not torch.distributed.is_initialized()
+    assert {t.device.type for _, t in tree_items(res.params)} == {"cpu"}
 
 
 def _kernel_calls(device, n=64):
