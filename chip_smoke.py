@@ -129,15 +129,32 @@ non-zero:
    launch/train --smoke cut after 2 steps and resumed from its checkpoint
    to 4, torch.equal to an unbroken 4-step run. No kernel of K1-K7
    launches on this path.
+16. dryrun — the sharding and dry-run slice (sharding/rules,
+   launch/{specs, dryrun, roofline}): the dry run of every architecture
+   x shape on the 16x16 mesh with the bytes on 2x16x16 (80 records, 16
+   of them long_500k skips), each cell's status, per-device GiB and,
+   for DRYRUN_COUNTED's architectures, matmul TFLOPs (FlopCounterMode
+   over the whole step on meta tensors; the CLI counts the others); any
+   `error`, or an `ok` cell whose per-device argument bytes pass 80 GiB
+   on 16x16 without its record saying so, fails the phase. Then the
+   roofline checked against real steps on the card (launch/roofline
+   --measure): qwen3-8b at full width cut to 4 layers, train at batch 8
+   x seq 128 on a mesh of one device, where FlopCounterMode over the real
+   step equals the meta count, the spec-derived argument bytes equal the
+   real params', AdamW state's and batch's nbytes (printed beside the
+   memory_allocated delta), and the median of 5 steps after 1 warm-up is
+   at least the bound (the ratio printed); then qwen3-8b decode at batch
+   8 over the 32768-slot cache, step time against memory_s, printed
+   beside the llm phase's step_bytes bound. No kernel of K1-K7 launches.
 
 The deep workloads (11-13) keyswitch through the library route, as the
 reference does, and launch no kernel: their counts must stay 0, as must
-the pim, verify, mesh, llm and train paths'. Launch counts are set to 0
-just before each of the staged, fig14, serve, fleet, pim, verify, mesh,
-linalg, bootstrap, llm and train paths and read just after. The fleet and pim
-phases write their trace and metrics files (the verify phase its lint
-JSON lines) under build/repro_torch/chip_smoke/ and keep the event log
-in memory. Then a JSON line of per-kernel numbers (all ten kernel rows,
+the pim, verify, mesh, llm, train and dryrun paths'. Launch counts are
+set to 0 just before each of the staged, fig14, serve, fleet, pim,
+verify, mesh, linalg, bootstrap, llm, train and dryrun paths and read
+just after. The fleet and pim phases write their trace and metrics
+files (the verify phase its lint JSON lines) under
+build/repro_torch/chip_smoke/ and keep the event log in memory. Then a JSON line of per-kernel numbers (all ten kernel rows,
 launches per path), the card's name and power limit from nvidia-smi, and
 the final status line.
 Imports nothing of JAX.
@@ -244,6 +261,18 @@ BF16_DENSE_PEAK = 989.4e12   # H100 SXM bf16 dense FLOP/s at 700 W
 # tests' limits (tests/test_torch_llm_train.py)
 TRAIN_CHECK_TOL = 1e-4
 TRAIN_FLAT_GRAD = 1e-3  # |g| <= this * max |g|: Adam's sign may flip there
+
+# the dryrun phase: the architectures whose cells it counts (FlopCounterMode
+# over the whole step on meta tensors; the others' bytes only: the dry-run
+# CLI counts every cell), and the cut cells it runs on the card through
+# launch/roofline --measure: qwen3-8b at full width, 36 -> 4 layers
+# (~2.0 B parameters, 20 GB of weights and AdamW state) at launch/train's
+# batch 8 x seq 128, and its decode at batch 8 over decode_32k's 32768-slot cache at
+# full depth (16 GB of weights, 39 GB of cache)
+DRYRUN_COUNTED = ("qwen3-8b", "deepseek-v3-671b", "arctic-480b")
+DRYRUN_TRAIN = dict(arch="qwen3-8b", shape="train_4k", layers=4, batch=8,
+                    seq=128)
+DRYRUN_DECODE = dict(arch="qwen3-8b", shape="decode_32k", batch=8)
 
 # kernels each driven path must launch, and the path whose count is a
 # kernel's `launches` in the JSON line
@@ -1303,6 +1332,109 @@ def train_phase(torch, dev, card, smoke=False):
         dist.destroy_process_group()
 
 
+def dryrun_phase(torch, dev, card, smoke=False):
+    """The sharding and dry-run slice: the dry run's sweep (counts for
+    DRYRUN_COUNTED's architectures), then the roofline checked against
+    real steps on `dev`: the DRYRUN_TRAIN and DRYRUN_DECODE cells through
+    roofline.measure. --smoke (the CPU rehearsal) counts no cell of the
+    sweep and measures the smoke configs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline, serve
+    from repro_torch.launch.specs import SHAPES
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    counts, recs, by_status = {}, [], collections.Counter()
+    with open(os.path.join(OUT_DIR, "dryrun.jsonl"), "w") as f:
+        for arch in dryrun.canonical_archs():
+            for shape in SHAPES:
+                for multi_pod in (False, True):
+                    rec = dryrun.run_cell(
+                        arch, shape, multi_pod, counts=counts,
+                        count=not smoke and arch in DRYRUN_COUNTED)
+                    f.write(json.dumps(rec) + "\n")
+                    recs.append(rec)
+                    by_status[rec["status"]] += 1
+                    print("  " + dryrun.describe(rec), flush=True)
+    errors = [r for r in recs if r["status"] == "error"]
+    if errors:
+        raise AssertionError(f"dryrun: {len(errors)} cells failed: "
+                             + "; ".join(f"{r['arch']} {r['shape']} "
+                                         f"{r['mesh']}: {r['error']}"
+                                         for r in errors))
+    silent = [r for r in recs if r["status"] == "ok" and r["mesh"] == "16x16"
+              and r["argument_bytes"] > dryrun.DEVICE_MEMORY_BYTES
+              and (r["fits_device"] or "note" not in r)]
+    if silent:
+        raise AssertionError(
+            f"dryrun: over 80 GiB a device without a note: "
+            f"{[(r['arch'], r['shape']) for r in silent]}")
+    if len(recs) != 80 or by_status["skipped"] != 16:
+        raise AssertionError(f"dryrun: {len(recs)} records, {dict(by_status)}")
+    print(f"dryrun: sweep of {len(recs)} records ({dict(by_status)}) in "
+          f"{time.perf_counter() - t0:.1f} s; counted "
+          f"{'none' if smoke else ', '.join(DRYRUN_COUNTED)} (FlopCounterMode "
+          f"on meta tensors, counts not measurements)", flush=True)
+
+    def free():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    rows = {}
+    for name, cell in (("train", DRYRUN_TRAIN), ("decode", DRYRUN_DECODE)):
+        t_cell = time.perf_counter()
+        kw = dict(cell, smoke=smoke)
+        if smoke:
+            kw.update(layers=None, batch=2, seq=16 if name == "train" else 64)
+        r = roofline.measure(device=dev, **kw)
+        free()
+        r["card"] = card
+        if r["real_matmul_flops"] != r["meta_matmul_flops"]:
+            raise AssertionError(f"dryrun {name}: FlopCounterMode counts "
+                                 f"{r['real_matmul_flops']} on the real "
+                                 f"step, {r['meta_matmul_flops']} on meta")
+        if r["real_argument_bytes"] != r["argument_bytes"]:
+            raise AssertionError(f"dryrun {name}: argument bytes from specs "
+                                 f"{r['argument_bytes']}, real tensors "
+                                 f"{r['real_argument_bytes']}")
+        if r["ms"] < r["bound_ms"]:
+            raise AssertionError(f"dryrun {name}: {r['ms']} ms a step is "
+                                 f"under the bound {r['bound_ms']} ms: the "
+                                 f"count is wrong")
+        print(f"dryrun: {roofline.describe_measure(r)} "
+              f"({time.perf_counter() - t_cell:.1f} s) [{card}]", flush=True)
+        rows[name] = r
+
+    # the decode bound beside the llm phase's: step_bytes on meta tensors
+    cfg = get_config(DRYRUN_DECODE["arch"], smoke=smoke)
+    model = M.DecodeModel(cfg, "meta", params=M.abstract_params(cfg))
+    llm = serve.parse_args(LLM_SERVE)
+    d = rows["decode"]
+    b, s = d["batch"], d["seq"]
+    at_llm = step_bytes(torch, M, cfg, model, llm.batch,
+                        llm.prompt_len + llm.gen,
+                        llm.prompt_len - 1 + llm.gen // 2)[0]
+    at_cell = step_bytes(torch, M, cfg, model, b, s, s - 1)[0]
+    d.update(step_bytes_llm_phase=at_llm,
+             step_bytes_llm_phase_ms=at_llm / HBM_BYTES_PER_S * 1e3,
+             step_bytes_at_cell=at_cell,
+             step_bytes_at_cell_ms=at_cell / HBM_BYTES_PER_S * 1e3)
+    print(f"dryrun: decode bounds of {cfg.name} at batch {b}: memory_s "
+          f"{d['memory_s'] * 1e3:.3f} ms (arguments and outputs: the whole "
+          f"{s}-slot cache read and written anew, the whole embedding "
+          f"table) against step_bytes {d['step_bytes_at_cell_ms']:.3f} ms at "
+          f"the cell's position {s - 1} (the cache read whole, one slot "
+          f"written in place, {b} embedding rows) and the llm phase's "
+          f"{d['step_bytes_llm_phase_ms']:.3f} ms (s_max "
+          f"{llm.prompt_len + llm.gen}, the cache up to position "
+          f"{llm.prompt_len - 1 + llm.gen // 2}); the step took "
+          f"{d['ms']:.3f} ms [{card}]", flush=True)
+    for name, r in rows.items():
+        print(f"dryrun {name} " + json.dumps(r), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1827,9 +1959,9 @@ def main() -> int:
     def no_kernel_launched(path):
         """The deep workloads keyswitch through the library route of
         core/ops, as the reference does, the pim path simulates, the
-        verify and mesh paths are host analysis and torch ops, and the llm
-        path reaches no Pallas kernel in the reference: no kernel of K1-K7
-        may launch."""
+        verify and mesh paths are host analysis and torch ops, and the llm,
+        train and dryrun paths reach no Pallas kernel in the reference: no
+        kernel of K1-K7 may launch."""
         paths[path] = launched = {
             k: v.launches for k, v in common.KERNELS.items()}
         if any(launched.values()):
@@ -1905,6 +2037,13 @@ def main() -> int:
         train_phase(torch, dev, card_line())
         torch.cuda.synchronize()
         no_kernel_launched("train")
+        torch.cuda.empty_cache()
+
+    with Phase("dryrun"):
+        common.reset_launches()
+        dryrun_phase(torch, dev, card_line())
+        torch.cuda.synchronize()
+        no_kernel_launched("dryrun")
         torch.cuda.empty_cache()
 
     if set(ORDER) != set(common.KERNELS) or set(ORDER) != set(rows):

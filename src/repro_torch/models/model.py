@@ -33,6 +33,7 @@ from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (apply_rope, cross_attention, rmsnorm,
                                        rope_angles, swiglu)
+from repro_torch.sharding.rules import default_rules, spec_for_shape
 
 F32 = torch.float32
 
@@ -304,6 +305,30 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None):
     return tree_map(draw, param_schema(cfg))
 
 
+def abstract_params(cfg: ArchConfig):
+    """The parameter tree's shapes and dtype as meta tensors (the
+    reference's ShapeDtypeStructs): nothing is allocated."""
+    dt = dtype_of(cfg)
+    return tree_map(lambda ps: torch.empty(ps.shape, dtype=dt, device="meta"),
+                    param_schema(cfg))
+
+
+def logical_axes(cfg: ArchConfig):
+    return tree_map(lambda ps: ps.logical, param_schema(cfg))
+
+
+def _specs(schema, mesh, rules):
+    rules = rules or default_rules()
+    return tree_map(lambda ps: spec_for_shape(mesh, ps.logical, ps.shape,
+                                              rules), schema)
+
+
+def param_specs(cfg: ArchConfig, mesh, rules=None):
+    """The parameter tree's specs on `mesh` (sharding.rules' tuples; the
+    reference returns NamedShardings of the same PartitionSpecs)."""
+    return _specs(param_schema(cfg), mesh, rules)
+
+
 def tensor_from_numpy(a) -> torch.Tensor:
     """A numpy array (ml_dtypes' bfloat16 included) as a CPU tensor."""
     a = np.asarray(a)
@@ -345,7 +370,10 @@ def _moe_layer(x, bp, cfg, mesh, variant="auto"):
     tokens split evenly over the data-parallel and model ranks with at
     least 8 a rank, else the psum schedule (the reference's rule);
     decode asks for "psum", which needs no mesh (None). The port runs the
-    model on one rank: every expert and every token is on it."""
+    model on one rank: every expert and every token is on it. The mesh is
+    a launch.mesh.Mesh of one rank, or a compat.AbstractMesh of one (the
+    dry run's count on meta tensors), whose all_to_all keeps its blocks:
+    both run the all_to_all schedule, so they count the same matmuls."""
     b, s, d = x.shape
     h = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps)
     tokens = h.reshape(b * s, d)
@@ -711,6 +739,10 @@ def abstract_cache(cfg: ArchConfig, batch: int, s_max: int):
         else:
             out[k] = tree_map(meta, v)
     return out
+
+
+def cache_specs(cfg: ArchConfig, mesh, batch: int, s_max: int, rules=None):
+    return _specs(cache_schema(cfg, batch, s_max), mesh, rules)
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, device):

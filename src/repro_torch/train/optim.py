@@ -8,10 +8,12 @@ whose decay and step differ.
 
 Parameters, m and v are updated in place (the reference's jitted step
 returns new buffers; holding both copies would double the state), a
-slice of at most CHUNK elements at a time, so a leaf's float32
-temporaries stay small; the arithmetic is elementwise, so the slicing
-changes no value. The reference's abstract_adamw_state and
-adamw_state_specs come with the sharding slice.
+slice of at most CHUNK elements at a time (a meta tensor in one), so a
+leaf's float32 temporaries stay small; the arithmetic is elementwise, so
+the slicing changes no value. `abstract_adamw_state` and
+`adamw_state_specs` give the state's meta tensors and specs for the dry
+run: m and v take their parameters' specs (FSDP'd parameters give
+ZeRO-sharded states).
 """
 from __future__ import annotations
 
@@ -32,6 +34,20 @@ def adamw_init(params):
                                             device=p.device), params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def abstract_adamw_state(params_abstract):
+    """The state adamw_init makes, as meta tensors."""
+    def meta(p):
+        return torch.empty(p.shape, dtype=F32, device="meta")
+    return {"m": tree_map(meta, params_abstract),
+            "v": tree_map(meta, params_abstract),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def adamw_state_specs(param_specs, mesh):
+    """m and v laid out as their parameters; the step replicated."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -74,6 +90,8 @@ def adamw_update(params, grads, state, lr: float = 3e-4, b1: float = 0.9,
             raise ValueError(f"{'/'.join(path)}: AdamW updates contiguous "
                              f"leaves in place")
         flat = [x.view(-1) for x in (p, g.contiguous(), m, v)]
-        for i in range(0, p.numel(), CHUNK):
-            upd(*(x[i:i + CHUNK] for x in flat), decay=p.ndim > 1)
+        # meta tensors (the dry run's count) hold no temporaries to bound
+        chunk = max(p.numel(), 1) if p.is_meta else CHUNK
+        for i in range(0, p.numel(), chunk):
+            upd(*(x[i:i + chunk] for x in flat), decay=p.ndim > 1)
     return params, {"m": state["m"], "v": state["v"], "step": step}

@@ -72,6 +72,9 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch.launch.train, repro_torch.data.pipeline\n"
             "import repro_torch.train.optim, repro_torch.train.checkpoint\n"
             "import repro_torch.train.fault, repro_torch.train.compress\n"
+            "import repro_torch.compat, repro_torch.sharding.rules\n"
+            "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.roofline\n"
             "from repro_torch.configs import get_config, list_archs\n"
             "[get_config(a, smoke=s).param_count() for a in list_archs()\n"
             " for s in (False, True)]\n"
@@ -107,7 +110,9 @@ def test_sources_import_no_reference():
             "configs/deepseek_v3_671b.py", "launch/serve.py",
             "launch/train.py", "data/__init__.py", "data/pipeline.py",
             "train/__init__.py", "train/optim.py", "train/checkpoint.py",
-            "train/fault.py", "train/compress.py"} <= walked
+            "train/fault.py", "train/compress.py", "compat.py",
+            "sharding/__init__.py", "sharding/rules.py", "launch/specs.py",
+            "launch/dryrun.py", "launch/roofline.py"} <= walked
     for path in files + [CHIP_SMOKE]:
         bad = imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, (path, bad)
@@ -225,6 +230,21 @@ def test_llm_train_refuses_cpu_fallback(monkeypatch, capsys, tmp_path):
     assert capsys.readouterr().out.startswith("arch=qwen3-smoke params~")
     assert len(res.history) == 1 and not torch.distributed.is_initialized()
     assert {t.device.type for _, t in tree_items(res.params)} == {"cpu"}
+
+
+def test_roofline_measure_refuses_cpu_fallback(monkeypatch, tmp_path):
+    """The roofline's --measure runs one real step: without CUDA it raises
+    unless asked for the CPU. The dry run and the roofline's counts need
+    no device (meta tensors)."""
+    from repro_torch.launch import roofline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = ["--arch", "qwen3-8b", "--shape", "train_4k", "--measure",
+             "--smoke", "--batch", "1", "--seq", "4", "--out",
+             str(tmp_path / "r.jsonl")]
+    for argv in (small, small + ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            roofline.main(argv)
+    assert roofline.main(small + ["--device", "cpu"]) == 0
 
 
 def _kernel_calls(device, n=64):
