@@ -2,6 +2,8 @@
 jax, so the port keeps its own)."""
 from __future__ import annotations
 
+import json
+import os
 import time
 from pathlib import Path
 
@@ -36,8 +38,47 @@ def timeit(fn, *args, device: torch.device, warmup: int = 1,
     return float(np.median(ts))
 
 
+# the "device" of a record whose driver placed no tensor: it ran only the
+# analytic or discrete-event models, on the host
+HOST = "host"
+
+
 def row(name: str, us: float, derived: str = "") -> None:
     print(f"{name},{us:.1f},{derived}")
+
+
+def emit(records: list, name: str, us: float, derived: str = "",
+         **extra) -> None:
+    """Print one CSV row and keep it as a record."""
+    row(name, us, derived)
+    records.append({"name": name, "us_per_call": us, "derived": derived,
+                    **extra})
+
+
+def write_records(fname: str, records, device, **common) -> str:
+    """Rewrite RESULTS/fname with one JSON line a record, each carrying
+    `device` (a torch device, or HOST) and the `common` fields."""
+    os.makedirs(RESULTS, exist_ok=True)
+    path = os.path.join(RESULTS, fname)
+    with open(path, "w") as f:
+        for r in records:
+            f.write(json.dumps({**r, **common, "device": str(device)})
+                    + "\n")
+    return path
+
+
+def mem_profile(name: str):
+    """Flat MemoryModel of a named hardware preset: the same registry
+    (repro_torch.pim.arch) `serve_fhe --mem-profile` and the pim backend
+    use."""
+    from repro_torch.pim.arch import memory_model
+    return memory_model(name)
+
+
+def pim_arch(name: str):
+    """Hierarchical arch of a named hardware preset (repro_torch.pim.arch)."""
+    from repro_torch.pim.arch import get_arch
+    return get_arch(name)
 
 
 def synced(fn, *args, device: torch.device):

@@ -28,14 +28,12 @@ Emits ``name,us_per_call,derived`` CSV rows and rewrites
 from __future__ import annotations
 
 import argparse
-import json
-import os
 import sys
 
 import numpy as np
 import torch
 
-from repro_torch.benchmarks.common import RESULTS, row, timeit
+from repro_torch.benchmarks.common import emit, timeit, write_records
 from repro_torch.core import modarith as ma
 from repro_torch.core import ntt as nttm
 from repro_torch.core.context import CkksContext, resolve_device
@@ -46,13 +44,6 @@ from repro_torch.kernels import common as kcom
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.keyswitch import FusedKeySwitch, keyswitch_staged
-
-
-
-def _emit(records, name, us, derived="", **extra):
-    row(name, us, derived)
-    records.append({"name": name, "us_per_call": us, "derived": derived,
-                    **extra})
 
 
 def _exact(name, got, want) -> None:
@@ -100,15 +91,15 @@ def keyswitch_comparison(records, smoke: bool, dev: torch.device,
                      warmup=1, iters=iters)
     t_staged = timeit(lambda: keyswitch_staged(ctx, d2[0], level, rk),
                       device=dev, warmup=1, iters=iters)
-    _emit(records, f"fig14_keyswitch_fused_{route}", t_fused * 1e6,
+    emit(records, f"fig14_keyswitch_fused_{route}", t_fused * 1e6,
           f"4 launches, digits={digits} level={level}",
           dispatches=fused_disp, digits=digits, level=level,
           log_n=params.log_n)
-    _emit(records, f"fig14_keyswitch_staged_{route}", t_staged * 1e6,
+    emit(records, f"fig14_keyswitch_staged_{route}", t_staged * 1e6,
           f"{staged_disp} launches (7*digits+10)",
           dispatches=staged_disp, digits=digits, level=level,
           log_n=params.log_n)
-    _emit(records, "fig14_keyswitch_dispatch_reduction", 0.0,
+    emit(records, "fig14_keyswitch_dispatch_reduction", 0.0,
           f"{staged_disp}/{fused_disp} = {reduction:.2f}x (asserted >= 4x)",
           staged_dispatches=staged_disp, fused_dispatches=fused_disp,
           reduction=reduction)
@@ -136,30 +127,30 @@ def main(argv=()) -> list:
     records = []
 
     t = timeit(lambda: nttm.ntt(a[None], tabs), device=dev)
-    _emit(records, "fig14_ntt_iterative_torch", t * 1e6, f"N=2^{log_n}")
+    emit(records, "fig14_ntt_iterative_torch", t * 1e6, f"N=2^{log_n}")
     kern = kops.NttKernel(q, psi, log_n, log_n // 2)
     _exact("four-step NTT", kern(a), kref.four_step_ntt_ref(a, kern.tabs))
     t = timeit(lambda: kern(a), device=dev, warmup=1, iters=3)
-    _emit(records, f"fig14_ntt_fourstep_{route}", t * 1e6,
+    emit(records, f"fig14_ntt_fourstep_{route}", t * 1e6,
           "K7 ntt_col + ntt_row" if route == "cuda" else
           "K7's plain version")
     t = timeit(lambda: kref.four_step_ntt_ref(a, kern.tabs), device=dev,
                warmup=1, iters=3)
-    _emit(records, "fig14_ntt_fourstep_ref", t * 1e6)
+    emit(records, "fig14_ntt_fourstep_ref", t * 1e6)
 
     # modmul reduction strategies (paper §IV-B: Montgomery-friendly moduli)
     b = torch.from_numpy(rng.integers(0, q, size=(4, n))).to(dev)
     qv = torch.tensor(q, device=dev)
-    _emit(records, "fig14_modmul_generic", 1e6 * timeit(
+    emit(records, "fig14_modmul_generic", 1e6 * timeit(
         lambda: ma.mulmod(b, b, qv), device=dev), "int64 split remainder")
     mu = torch.tensor(ma.barrett_mu(q), device=dev)
-    _emit(records, "fig14_modmul_barrett", 1e6 * timeit(
+    emit(records, "fig14_modmul_barrett", 1e6 * timeit(
         lambda: ma.mulmod_barrett(b, b, qv, mu), device=dev))
     qi = torch.tensor(ma.mont_qinv_neg(q), device=dev)
-    _emit(records, "fig14_modmul_montgomery", 1e6 * timeit(
+    emit(records, "fig14_modmul_montgomery", 1e6 * timeit(
         lambda: ma.mont_mul(b, b, qv, qi), device=dev))
     bb, ss = mod.solinas
-    _emit(records, "fig14_modmul_solinas_shiftadd", 1e6 * timeit(
+    emit(records, "fig14_modmul_solinas_shiftadd", 1e6 * timeit(
         lambda: ma.mulmod_solinas(b, b, qv, bb, ss), device=dev),
         f"q=2^{bb}-2^{ss}+1 hamming={mod.hamming_weight}")
 
@@ -174,17 +165,14 @@ def main(argv=()) -> list:
     for lazy, name, note in ((False, "eager", ""),
                              (True, "lazy", "deferred modular folds")):
         _exact(f"{name} BConv", kops.bconv(v, w, dst, lazy=lazy), want)
-        _emit(records, f"fig14_bconv_kernel_{name}_{route}", 1e6 * timeit(
+        emit(records, f"fig14_bconv_kernel_{name}_{route}", 1e6 * timeit(
             lambda: kops.bconv(v, w, dst, lazy=lazy), device=dev,
             warmup=1, iters=3), note)
 
     keyswitch_comparison(records, args.smoke, dev, route)
 
-    os.makedirs(RESULTS, exist_ok=True)
-    with open(os.path.join(RESULTS, "fig14_kernels.jsonl"), "w") as f:
-        for r in records:
-            f.write(json.dumps({**r, "smoke": bool(args.smoke),
-                                "device": str(dev)}) + "\n")
+    write_records("fig14_kernels.jsonl", records, dev,
+                  smoke=bool(args.smoke))
     return records
 
 

@@ -13,9 +13,10 @@ pass of each op, not eight. PyTorch runs eagerly: no per-signature trace
 or compile cache is needed.
 
 With ``use_kernels`` every keyswitch runs on the fused CUDA kernels
-(kernels/keyswitch.py, 4 launches) and the plaintext-multiply data
-product on the modmul kernel (kernels/modmul.py) with the batch folded
-into the limb-row axis; both are bit-exact against the library route.
+(kernels/keyswitch.py, 4 launches), every rescale on the same kernels'
+ModDown tail (2 launches) and the plaintext-multiply data product on the
+modmul kernel (kernels/modmul.py) with the batch folded into the
+limb-row axis; all are bit-exact against the library route.
 
 Plaintext constants are encoded once per (const expression, level,
 scale) and memoized through a pluggable cache hook (the serving backend
@@ -104,6 +105,13 @@ class CtBatch:
         return self.level + 1
 
 
+@dataclasses.dataclass
+class _Const(Plaintext):
+    """An encoded constant as the const cache holds it, with K4's
+    Montgomery operand (b, q32, -q^-1) on the kernel route, else None."""
+    mont: Optional[Tuple[torch.Tensor, ...]] = None
+
+
 def _default_cache_factory() -> Callable:
     memo: Dict = {}
 
@@ -142,9 +150,9 @@ class CkksEngine:
         self._gks: Dict[int, KeySwitchKey] = {}
         self.const_cache = const_cache or _default_cache_factory()
         self.on_key_load = on_key_load
-        # `use_kernels` routes every keyswitch through the fused kernels
-        # AND the pmul data product through the modmul kernel; both are
-        # bit-exact vs the library path
+        # `use_kernels` routes every keyswitch and rescale through the
+        # fused kernels (K1-K3) AND the pmul data product through the
+        # modmul kernel; all are bit-exact vs the library path
         self.use_kernels = use_kernels
         self._fks = None
         if on_key_load is not None:
@@ -201,13 +209,22 @@ class CkksEngine:
                      key: Optional[Tuple] = None) -> Plaintext:
         """Encode (and memoize through the cache hook) one plaintext. The
         key includes a digest of the VALUE, so a const name rebound to a
-        new value is never served stale."""
-        nbytes = (level + 1) * self.params.n * 8
+        new value is never served stale. On the kernel route the entry
+        also holds K4's Montgomery operand, converted once here."""
+        # int64 residues, plus the int32 Montgomery operand for K4
+        nbytes = (level + 1) * self.params.n * (12 if self.use_kernels
+                                                else 8)
         digest = hash(np.ascontiguousarray(vec).tobytes())
         k = ("pt",) + (key or ()) + (digest, level, float(scale))
-        data = self.const_cache(
-            k, nbytes, lambda: self.encoder.encode(vec, scale, level))
-        return Plaintext(data, level, scale)
+
+        def load() -> _Const:
+            data = self.encoder.encode(vec, scale, level)
+            mont = None
+            if self.use_kernels:
+                from repro_torch.kernels import ops as kops
+                mont = kops.mont_operand(data, self.ctx.primes[:level + 1])
+            return _Const(data, level, scale, mont)
+        return self.const_cache(k, nbytes, load)
 
     # -- batched op appliers -------------------------------------------------
 
@@ -226,8 +243,7 @@ class CkksEngine:
         pt_scale = scale * q_drop / cb.scale
         pt = self.encode_const(np.ones(self.params.slots), pt_scale,
                                level + 1, key=("unit",))
-        out = hops.pmul(self.ctx, Ciphertext(cb.data, cb.level, cb.scale),
-                        Plaintext(pt.data, cb.level, pt_scale))
+        out = self._pmul(cb, pt, lazy=False)      # pt at cb's level
         return CtBatch(out.data, level, scale)   # exact by construction
 
     def _aligned(self, c0: CtBatch, c1: CtBatch) -> Tuple[CtBatch, CtBatch]:
@@ -296,17 +312,24 @@ class CkksEngine:
         return CtBatch(out.data, out.level, out.scale)
 
     def _rescale(self, cb: CtBatch) -> CtBatch:
+        if self.use_kernels:
+            # K1 + K3 (the keyswitch's ModDown tail by the last prime),
+            # bit-identical to core/ops.rescale
+            return CtBatch(self.fused_ks.rescale(cb.data, cb.level),
+                           cb.level - 1,
+                           cb.scale / self.ctx.q_primes[cb.level])
         out = hops.rescale(self.ctx, Ciphertext(cb.data, cb.level, cb.scale))
         return CtBatch(out.data, out.level, out.scale)
 
-    def _pmul_kernel(self, cb: CtBatch, pt: Plaintext) -> CtBatch:
+    def _pmul_kernel(self, cb: CtBatch, pt: _Const) -> CtBatch:
         """Plaintext-multiply data product through the modmul kernel: the
         (B, 2, L) rows fold into the kernel's limb-row axis and pair with
-        the plaintext row of their limb, so ONE launch covers the batch."""
+        the plaintext row of their limb, so ONE launch covers the batch.
+        pt comes from `encode_const`, with its Montgomery operand."""
         from repro_torch.kernels import ops as kops
         b, _, lp, n = cb.data.shape
         a = cb.data.reshape(2 * b * lp, n)
-        data = kops.modmul(a, pt.data[:lp], self.ctx.primes[:lp])
+        data = kops.modmul_mont(a, *(t[:lp] for t in pt.mont))
         return CtBatch(data.reshape(b, 2, lp, n), cb.level,
                        cb.scale * pt.scale)
 

@@ -20,6 +20,13 @@ it as FOUR launches, whatever the digit count, limb count or batch:
      chunks of a row: BConv P->Q, forward NTT, subtraction from the Q
      limbs, times P^{-1}
 
+A rescale is a ModDown by one prime, the last Q limb: `FusedKeySwitch.
+rescale` runs it as the same tail, TWO launches: K1 on that limb (scale
+n^{-1}), then K3 with it as a one-limb "special" basis (BConv weight 1,
+times q_l^{-1}), bit-identical to ``core/ops.rescale``. Its launches
+count as ``intt_scale(rescale)`` and ``moddown(rescale)``, apart from a
+keyswitch's.
+
 ``keyswitch_staged`` runs the same keyswitch as one dispatch per stage
 (7·digits + 10), through K4-K6 and the library NTTs: the baseline the
 fused pipeline is measured against (benchmarks/fig14_kernels.py).
@@ -55,8 +62,10 @@ from repro_torch.kernels.common import (SCHED_VALS, addmod32, as_i32,
 
 I32 = torch.int32
 SRC = "src/repro_torch/csrc/keyswitch.cu"
-# K1 has two launch shapes, counted apart: stage A (every Q limb of the
-# batch) and C1 (the special limbs of both accumulators)
+# K1 has three launch shapes and K3 two, each counted apart: K1 stage A
+# (every Q limb of the batch) and C1 (the special limbs of both
+# accumulators) and K3 of a keyswitch; K1 on the last Q limb and K3 over
+# that one-limb basis of a rescale
 INTT_SCALE = register_kernel("intt_scale", SRC,
                              "src/repro/kernels/keyswitch.py:103")
 INTT_SCALE_C1 = register_kernel("intt_scale(C1)", SRC,
@@ -64,6 +73,10 @@ INTT_SCALE_C1 = register_kernel("intt_scale(C1)", SRC,
 BCONV_NTT_MULACC = register_kernel("bconv_ntt_mulacc", SRC,
                                    "src/repro/kernels/keyswitch.py:113")
 MODDOWN = register_kernel("moddown", SRC, "src/repro/kernels/keyswitch.py:144")
+INTT_SCALE_RESCALE = register_kernel("intt_scale(rescale)", SRC,
+                                     "src/repro/kernels/keyswitch.py:103")
+MODDOWN_RESCALE = register_kernel("moddown(rescale)", SRC,
+                                  "src/repro/kernels/keyswitch.py:144")
 
 MAX_LOG_N = 16          # csrc/common.cuh: at most 4 chunks of 16384
 MIN_LOG_N = 5           # K1-K3: a chunk of at least 32 words (2 threads)
@@ -247,7 +260,8 @@ def intt_scale(x: torch.Tensor, row0: int, n_rows: int, irp_m, q32, qi32,
                scale_m, *, counter=INTT_SCALE) -> torch.Tensor:
     """Rows [row0, row0+n_rows) of x (R, S, N): GS inverse NTT (no n^{-1})
     then a Montgomery multiply by scale_m[j] -> (R, n_rows, N) int32.
-    A kernel launch adds one to `counter` (INTT_SCALE or INTT_SCALE_C1)."""
+    A kernel launch adds one to `counter` (INTT_SCALE, INTT_SCALE_C1 or
+    INTT_SCALE_RESCALE)."""
     r, s, n = x.shape
     log_n = _check_n(n)
     if not 0 <= row0 <= row0 + n_rows <= s:
@@ -340,11 +354,12 @@ def moddown_plain(g, vp, wpq_m, rp_m, q32, qi32, pinv_m):
 
 
 def moddown(g: torch.Tensor, vp, wpq_m, rp_m, q32, qi32,
-            pinv_m) -> torch.Tensor:
+            pinv_m, *, counter=MODDOWN) -> torch.Tensor:
     """g (2B, T, N) accumulators; vp (2B, n_p, N) their scaled P-limb
     inverse NTTs; wpq_m (n_p, l); rp_m (T, N), q32/qi32 (T,) of the target
     basis (the first l rows are the Q limbs); pinv_m (l,) ->
-    (2B, l, N) int32 = (g_Q - NTT(BConv_{P->Q}(vp))) * P^{-1}."""
+    (2B, l, N) int32 = (g_Q - NTT(BConv_{P->Q}(vp))) * P^{-1}.
+    A kernel launch adds one to `counter` (MODDOWN or MODDOWN_RESCALE)."""
     b2, t_n, n = g.shape
     n_p, l = wpq_m.shape
     log_n = _check_n(n)
@@ -365,7 +380,7 @@ def moddown(g: torch.Tensor, vp, wpq_m, rp_m, q32, qi32,
     build.launch(fn, g.data_ptr(), vp.data_ptr(), wpq_m.data_ptr(),
                  rp_m.data_ptr(), q32.data_ptr(), qi32.data_ptr(),
                  pinv_m.data_ptr(), out.data_ptr(), b2, l, t_n, n_p, log_n)
-    MODDOWN.launches += 1
+    counter.launches += 1
     return out
 
 
@@ -413,6 +428,20 @@ class _LevelTables:
     pinv_m: torch.Tensor          # (l,) P^{-1} mod q, Montgomery
 
 
+@dataclasses.dataclass
+class _RescaleTables:
+    """Device tables (int32, u32 residues) of a rescale from one level."""
+    irp_m: torch.Tensor           # (1, N) inverse twiddles of q_l
+    q_l32: torch.Tensor           # (1,)
+    q_l_qi32: torch.Tensor        # (1,)
+    scale_m: torch.Tensor         # (1,)  n^{-1} mod q_l, Montgomery
+    w_m: torch.Tensor             # (1, l) 1 mod q_j, Montgomery
+    rp_m: torch.Tensor            # (l + 1, N) forward twiddles
+    q32: torch.Tensor             # (l + 1,)
+    qi32: torch.Tensor            # (l + 1,)
+    qlinv_m: torch.Tensor         # (l,) q_l^{-1} mod q_j, Montgomery
+
+
 class FusedKeySwitch:
     """Executes the fused keyswitch pipeline against one CkksContext.
 
@@ -422,10 +451,12 @@ class FusedKeySwitch:
     """
 
     DISPATCHES_PER_APPLY = 4      # kernel launches per keyswitch
+    DISPATCHES_PER_RESCALE = 2    # K1 on the last limb, then K3
 
     def __init__(self, ctx):
         self.ctx = ctx
         self._tabs: Dict[int, _LevelTables] = {}
+        self._rescale_tabs: Dict[int, _RescaleTables] = {}
         self._ksk_m: Dict[Tuple, torch.Tensor] = {}
         self._twiddles = None
 
@@ -506,6 +537,51 @@ class FusedKeySwitch:
         )
         self._tabs[level] = t
         return t
+
+    def _rescale_tables(self, level: int) -> _RescaleTables:
+        t = self._rescale_tabs.get(level)
+        if t is not None:
+            return t
+        ctx = self.ctx
+        dev = ctx.device
+        q_l = ctx.primes[level]
+        low = ctx.primes[:level]
+        rp_all, irp_all = self._mont_twiddles()
+        t = _RescaleTables(
+            irp_m=irp_all[level:level + 1].contiguous(),
+            q_l32=as_i32([q_l], dev),
+            q_l_qi32=as_i32([qinv_neg32(q_l)], dev),
+            scale_m=as_i32([to_mont_int(pow(ctx.n, -1, q_l), q_l)], dev),
+            w_m=as_i32([[to_mont_int(1, q) for q in low]], dev),
+            rp_m=rp_all[:level + 1].contiguous(),
+            q32=as_i32(ctx.primes[:level + 1], dev),
+            qi32=as_i32([qinv_neg32(q) for q in ctx.primes[:level + 1]],
+                        dev),
+            qlinv_m=as_i32([to_mont_int(pow(q_l, -1, q), q) for q in low],
+                           dev),
+        )
+        self._rescale_tabs[level] = t
+        return t
+
+    def rescale(self, data: torch.Tensor, level: int) -> torch.Tensor:
+        """Rescale (B, 2, level+1, N) int64 NTT-domain ciphertexts by
+        their last prime: two launches, K1 (inverse NTT of the last limb)
+        and K3 (its residues NTT'd into each remaining limb, subtracted,
+        times q_l^{-1}). Returns (B, 2, level, N) int64, bit-identical to
+        core/ops.rescale."""
+        if level < 1:
+            raise ValueError("rescale: no levels left")
+        b, _, l1, n = data.shape
+        if l1 != level + 1:
+            raise ValueError(f"rescale: {l1} limbs at level {level}")
+        t = self._rescale_tables(level)
+        record_dispatch(self.DISPATCHES_PER_RESCALE)
+        x = data.reshape(2 * b, l1, n).to(I32).contiguous()
+        last = intt_scale(x, level, 1, t.irp_m, t.q_l32, t.q_l_qi32,
+                          t.scale_m, counter=INTT_SCALE_RESCALE)
+        out = moddown(x, last, t.w_m, t.rp_m, t.q32, t.qi32, t.qlinv_m,
+                      counter=MODDOWN_RESCALE)
+        return u32(out).reshape(b, 2, level, n)
 
     def ksk_mont(self, key: Tuple, level: int,
                  ksk_data: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ def _mont_consts(primes: Tuple[int, ...], device: str):
     return q64, q32, qinv, rm
 
 
-def _b_mont(b: torch.Tensor, primes: Sequence[int]):
+def mont_operand(b: torch.Tensor, primes: Sequence[int]):
     """b (Rb, N) in Montgomery form w.r.t. its row's prime (int32), and
     the basis constants q32, -q^-1 the kernels take."""
     q64, q32, qinv, rm = _mont_consts(
@@ -43,8 +43,15 @@ def modmul(a: torch.Tensor, b: torch.Tensor,
     """(a*b) mod q per limb row through K4. a: (R, N) int64; b: (Rb, N)
     int64 with R % Rb == 0 and primes of length Rb: row r of a pairs with
     row r % Rb of b and prime r % Rb."""
+    return modmul_mont(a, *mont_operand(b, primes))
+
+
+def modmul_mont(a: torch.Tensor, b_mont: torch.Tensor, q32: torch.Tensor,
+                qi32: torch.Tensor) -> torch.Tensor:
+    """`modmul` with b already converted by `mont_operand` (a constant
+    operand converted once and reused)."""
     record_dispatch()
-    return modmul_k.modmul_mont(a.contiguous(), *_b_mont(b, primes))
+    return modmul_k.modmul_mont(a.contiguous(), b_mont, q32, qi32)
 
 
 def mulacc(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -52,7 +59,7 @@ def mulacc(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """(a*b + c) mod q per limb row through K5; shapes and row pairing as
     `modmul`, c like a and reduced."""
     record_dispatch()
-    b_mont, q32, qinv = _b_mont(b, primes)
+    b_mont, q32, qinv = mont_operand(b, primes)
     return modmul_k.mulacc_mont(a.contiguous(), b_mont, c.contiguous(), q32,
                                 qinv)
 

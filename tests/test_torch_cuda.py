@@ -107,6 +107,26 @@ def test_kernels_equal_plain_and_library(cuda, log_n):
         assert torch.equal(e0, r0) and torch.equal(e1, r1)
 
 
+@pytest.mark.parametrize("log_n", [10, 16])
+def test_fused_rescale_equal_library(cuda, log_n):
+    """The kernel route's rescale (K1 on the last limb, K3 with it as a
+    one-limb basis) against core/ops.rescale at every level, batch 3;
+    one launch each of K1 and K3 a call, on the rescale's own counters."""
+    from repro_torch.core.ciphertext import Ciphertext
+    ctx, _ = _stack(log_n, cuda)
+    fks = ks.FusedKeySwitch(ctx)
+    for level in range(1, ctx.n_q):
+        data = torch.stack([_d2(ctx, 3, level, seed=level + k)
+                            for k in range(2)], 1)
+        common.reset_launches()
+        got = fks.rescale(data, level)
+        assert ks.INTT_SCALE_RESCALE.launches == 1
+        assert ks.MODDOWN_RESCALE.launches == 1
+        assert ks.INTT_SCALE_C1.launches == ks.MODDOWN.launches == 0
+        want = hops.rescale(ctx, Ciphertext(data, level, 2.0 ** 28))
+        assert torch.equal(got, want.data)
+
+
 def test_cluster_kernels_full_batch_32bit_special_prime(cuda):
     """K2 and K3 at logN = 16 (clusters of 4 chunks of 16384), B = 8,
     two digits of 6 (level 11) and a ragged tail (level 8), with the

@@ -14,13 +14,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.benchmarks import fig14_kernels  # noqa: E402
+from repro_torch.benchmarks import common, fig14_kernels  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
 def test_fig14_smoke_on_cpu(monkeypatch, tmp_path, capsys):
-    monkeypatch.setattr(fig14_kernels, "RESULTS", tmp_path)
+    monkeypatch.setattr(common, "RESULTS", str(tmp_path))
     records = fig14_kernels.main(["--smoke", "--device", "cpu"])
     names = [r["name"] for r in records]
     assert not [n for n in names if "pallas" in n or "_cuda" in n]

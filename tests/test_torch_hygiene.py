@@ -75,11 +75,27 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch.compat, repro_torch.sharding.rules\n"
             "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
             "import repro_torch.launch.roofline\n"
+            "import repro_torch.benchmarks.common\n"
+            "import repro_torch.benchmarks.fig1_bandwidth\n"
+            "import repro_torch.benchmarks.fig12_workloads\n"
+            "import repro_torch.benchmarks.fig13_breakdown\n"
+            "import repro_torch.benchmarks.fig15_ablations\n"
+            "import repro_torch.benchmarks.fig16_serving\n"
+            "import repro_torch.benchmarks.fig17_compiler\n"
+            "import repro_torch.benchmarks.fig18_calibration\n"
+            "import repro_torch.benchmarks.fig19_pim\n"
+            "import repro_torch.benchmarks.fig20_fleet\n"
+            "import repro_torch.benchmarks.fig21_trace\n"
+            "import repro_torch.benchmarks.fig22_utilization\n"
+            "import repro_torch.benchmarks.run\n"
+            "import repro_torch.benchmarks.compare\n"
+            "import repro_torch.benchmarks.report\n"
+            "import repro_torch.examples.lm_pretrain\n"
             "from repro_torch.configs import get_config, list_archs\n"
             "[get_config(a, smoke=s).param_count() for a in list_archs()\n"
             " for s in (False, True)]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]\n"
+            "('jax', 'jaxlib', 'repro', 'benchmarks')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
@@ -112,9 +128,18 @@ def test_sources_import_no_reference():
             "train/__init__.py", "train/optim.py", "train/checkpoint.py",
             "train/fault.py", "train/compress.py", "compat.py",
             "sharding/__init__.py", "sharding/rules.py", "launch/specs.py",
-            "launch/dryrun.py", "launch/roofline.py"} <= walked
+            "launch/dryrun.py", "launch/roofline.py",
+            "benchmarks/fig1_bandwidth.py", "benchmarks/fig12_workloads.py",
+            "benchmarks/fig13_breakdown.py", "benchmarks/fig15_ablations.py",
+            "benchmarks/fig16_serving.py", "benchmarks/fig17_compiler.py",
+            "benchmarks/fig18_calibration.py", "benchmarks/fig19_pim.py",
+            "benchmarks/fig20_fleet.py", "benchmarks/fig21_trace.py",
+            "benchmarks/fig22_utilization.py", "benchmarks/run.py",
+            "benchmarks/compare.py", "benchmarks/report.py",
+            "examples/lm_pretrain.py"} <= walked
     for path in files + [CHIP_SMOKE]:
-        bad = imported_roots(path) & {"jax", "jaxlib", "repro"}
+        # the root benchmarks/ package is the reference's (it imports jax)
+        bad = imported_roots(path) & {"jax", "jaxlib", "repro", "benchmarks"}
         assert not bad, (path, bad)
 
 
@@ -152,7 +177,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     for argv in (["--smoke"], ["--smoke", "--device", "cuda"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fig14_kernels.main(argv)
-    for name in ("quickstart", "lola_mnist", "helr_training", "sorting"):
+    for name in ("quickstart", "lola_mnist", "helr_training", "sorting",
+                 "lm_pretrain"):
         example = importlib.import_module(f"repro_torch.examples.{name}")
         for argv in ([], ["--device", "cuda"]):
             with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -160,6 +186,27 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert CkksContext(params, device="cpu").device.type == "cpu"
     assert not torch.distributed.is_initialized()
     assert CiphertextBackend(params, device="cpu").use_kernels is False
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("fig12_workloads", []), ("fig13_breakdown", []),
+    ("fig15_ablations", []), ("fig18_calibration", ["--smoke"]),
+    ("fig18_calibration", ["--smoke", "--use-kernels"]),
+    ("fig21_trace", ["--smoke"]), ("fig22_utilization", ["--smoke"]),
+    ("run", ["--only", "fig12"]), ("run", ["--only", "fig22"])])
+def test_bench_drivers_refuse_cpu_fallback(monkeypatch, tmp_path, name,
+                                           argv):
+    """Every benchmark driver that places tensors takes --device, CUDA by
+    default: without CUDA it raises, before writing any record, unless
+    asked for the CPU."""
+    from repro_torch.benchmarks import common
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(common, "RESULTS", str(tmp_path))
+    main = importlib.import_module(f"repro_torch.benchmarks.{name}").main
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv + extra)
+    assert not os.listdir(tmp_path)
 
 
 def test_deep_workloads_refuse_cpu_fallback(monkeypatch):

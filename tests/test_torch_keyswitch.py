@@ -14,6 +14,9 @@ versions, with the JAX reference.
   reference's interpret-mode and first-call compile costs to a few calls.)
 * 4 dispatches per apply, as tests/golden/dispatch_counts.json pins for
   the reference (read only here).
+* `FusedKeySwitch.rescale` (K1 on the last limb, then K3; 2 launches)
+  equals the port's library ``core/ops.rescale`` at every level, batch 1
+  and 3, and the reference's ``core/ops.rescale`` at the top level.
 * K4 (modmul) equals the reference's ``kernels.ops.modmul``, ragged N
   included.
 
@@ -150,6 +153,31 @@ def test_dispatches_per_apply_match_golden():
                 fks.apply(d2, level, km)
                 assert kcom.dispatch_count() == g["fused"] == \
                     FusedKeySwitch.DISPATCHES_PER_APPLY
+
+
+@pytest.mark.parametrize("dnum", [1, 2])
+def test_fused_rescale_equals_library_every_level(dnum):
+    from repro_torch.core.ciphertext import Ciphertext
+    s = stack(dnum)
+    tctx = s["tctx"]
+    fks = FusedKeySwitch(tctx)
+    scale = 2.0 ** 26
+    for level in range(1, N_LEVELS + 1):
+        data = np.stack([rand_d2(tctx.primes, 3, level, seed=level + k)
+                         for k in range(2)], 1)          # (3, 2, L, N)
+        want = tops.rescale(tctx, Ciphertext(t64(data), level, scale))
+        assert want.level == level - 1
+        for batch in (1, 3):
+            kcom.reset_dispatch_count()
+            got = fks.rescale(t64(data[:batch]), level)
+            assert kcom.dispatch_count() == \
+                FusedKeySwitch.DISPATCHES_PER_RESCALE == 2
+            eq(got, want.data[:batch])
+        if level == N_LEVELS:
+            from repro.core.ciphertext import Ciphertext as JCt
+            ref = jops.rescale(s["jctx"], JCt(jnp.asarray(data[0]), level,
+                                              scale))
+            eq(got[0], ref.data)
 
 
 @pytest.mark.parametrize("n", [512, 700])
