@@ -16,11 +16,20 @@ names and sizes with no devices behind them. ``sharding.rules`` resolves
 specs on it and ``launch.specs.build_cell`` lays cells out on it, as on a
 ``launch.mesh.Mesh``: both carry ``axis_names`` and ``shape`` (name ->
 size).
+
+``fake_process_group`` is the counterpart of the reference's placeholder
+host devices (``--xla_force_host_platform_device_count``): a default
+process group of N ranks in this one process, whose collectives move no
+data, so a ``launch.mesh.Mesh`` of the production shape can lay a step
+out on meta tensors. It wraps a private PyTorch module
+(``torch.testing._internal.distributed.fake_pg``), which is why it lives
+here and nowhere else.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterator, Sequence, Tuple
 
 import torch
 
@@ -59,4 +68,24 @@ def abstract_mesh(sizes: Sequence[int], names: Sequence[str]) -> AbstractMesh:
     return AbstractMesh(sizes, names)
 
 
-__all__ = ["AbstractMesh", "abstract_mesh"]
+@contextlib.contextmanager
+def fake_process_group(world_size: int) -> Iterator[None]:
+    """A default process group of `world_size` ranks, this process rank 0,
+    whose collectives return without moving data; destroyed on exit. It
+    must be the default group, so no other group may be initialised in
+    this process: the dry run starts it in a process of its own."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised in this "
+                           "process; the fake group must be the default one")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+__all__ = ["AbstractMesh", "abstract_mesh", "fake_process_group"]

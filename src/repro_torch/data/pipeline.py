@@ -1,6 +1,7 @@
 """Data pipeline: deterministic synthetic LM token streams (replay-exact
 for failure recovery — batch contents are a pure function of the step
-index) plus the host -> device copy. The port of ``repro.data.pipeline``:
+index) plus the host -> device copy, or the layout of a batch over a
+mesh's data-parallel axes. The port of ``repro.data.pipeline``:
 the same numpy draws in the same order, so both packages see the same
 batches.
 """
@@ -42,15 +43,27 @@ class SyntheticLMDataset:
         return out
 
 
-def shard_batch(batch: Dict[str, np.ndarray], device,
+def shard_batch(batch: Dict[str, np.ndarray], device_or_mesh,
                 dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """Host batch -> tensors on `device`: integer arrays keep their dtype,
-    float arrays become `dtype` (one device: the reference's data-parallel
-    sharding has one shard)."""
+    """Host batch -> tensors: integer arrays keep their dtype, float
+    arrays become `dtype`. Given a device, plain tensors on it (one
+    device: the reference's data-parallel sharding has one shard); given
+    a launch.mesh.Mesh, DTensors on its device laid out over its
+    data-parallel axes, the rest replicated (the reference's
+    NamedSharding(mesh, P(dp, None, ...))): each rank keeps its own rows
+    of the same host batch."""
+    mesh = device_or_mesh if hasattr(device_or_mesh, "axis_names") else None
+    device = mesh.device if mesh is not None else device_or_mesh
+
     def put(x):
         t = torch.from_numpy(np.ascontiguousarray(x))
         if x.dtype.kind not in "iu":
             t = t.to(dtype)
-        return t.to(device)
+        t = t.to(device)
+        if mesh is None:
+            return t
+        from repro_torch.sharding.dtensor import distribute
+        dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        return distribute(t, mesh, (dp,) + (None,) * (t.dim() - 1))
 
     return {k: put(v) for k, v in batch.items()}

@@ -16,16 +16,24 @@ before the mesh is built; every rank then builds the same mesh, since
 
 `make_production_mesh` gives the production layout's shape and axes
 only: it builds nothing, so it is safe on a machine of one card.
+`fake_production_mesh` builds that layout as a `Mesh` over a fake
+process group of 256 or 512 ranks (`compat.fake_process_group`), on meta
+tensors: the dry run lays the partitioned step out on it.
+
+Each `Mesh` also carries its `torch.distributed.device_mesh.DeviceMesh`
+(`device_mesh`, made on first use: the same ranks, row-major, the same
+axis names), on which the partitioned LLM step lays its DTensors out.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
 import uuid
 from datetime import timedelta
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -42,7 +50,10 @@ class Mesh:
     """Named axes over the ranks of the default process group."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 device: torch.device):
+                 device: torch.device, device_type: Optional[str] = None):
+        """`device_type` is the DeviceMesh's ("cuda" or "cpu"): the
+        device's own by default; a mesh on meta tensors names the device
+        the ranks stand for."""
         if len(shape) != len(axis_names):
             raise ValueError(f"mesh shape {tuple(shape)} against axes "
                              f"{tuple(axis_names)}")
@@ -54,6 +65,8 @@ class Mesh:
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(axis_names, shape))
         self.device = device
+        self.device_type = device_type or device.type
+        self._device_mesh = None
         self.rank = dist.get_rank()
         self.coords: Tuple[int, ...] = self.coords_of(self.rank)
         # one group per axis line; new_group is collective, so every rank
@@ -89,6 +102,22 @@ class Mesh:
             lines.append([self.rank_of(rest[:k] + [i] + rest[k:])
                           for i in range(self.shape[axis])])
         return lines
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    @property
+    def device_mesh(self):
+        """The DeviceMesh of these ranks and axes (row-major, as `Mesh`).
+        Made on first use; making it is collective, as `new_group` is."""
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+            ranks = torch.arange(self.size).reshape(
+                tuple(self.shape[a] for a in self.axis_names))
+            self._device_mesh = DeviceMesh(self.device_type, ranks,
+                                           mesh_dim_names=self.axis_names)
+        return self._device_mesh
 
     # -- coordinates ---------------------------------------------------------
 
@@ -218,4 +247,18 @@ def make_production_mesh(*, multi_pod: bool = False
     return shape, axes
 
 
-__all__ = ["Mesh", "make_host_mesh", "make_production_mesh"]
+@contextlib.contextmanager
+def fake_production_mesh(*, multi_pod: bool = False) -> Iterator[Mesh]:
+    """The production layout as a `Mesh` of 256 (or 512) ranks over a fake
+    process group started here and destroyed on exit: its tensors are
+    meta tensors, its DeviceMesh stands for H100s ("cuda"), and its
+    collectives move nothing. The counterpart of the reference's
+    placeholder host devices; the process must hold no other group."""
+    from repro_torch.compat import fake_process_group
+    shape, axes = make_production_mesh(multi_pod=multi_pod)
+    with fake_process_group(math.prod(shape)):
+        yield Mesh(shape, axes, torch.device("meta"), device_type="cuda")
+
+
+__all__ = ["Mesh", "fake_production_mesh", "make_host_mesh",
+           "make_production_mesh"]

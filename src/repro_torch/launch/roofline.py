@@ -10,15 +10,29 @@ k = 1, 2 extrapolation beside it and the gap between the two.
 
 Terms per cell on the 16x16 production mesh, in one H100 SXM's peaks
 (NVIDIA H100 80GB HBM3 data sheet, dense, 700 W):
-    compute_s    = flops / (n_devices * 989.4e12)    bf16 dense
+    compute_s    = flops_per_device / 989.4e12        bf16 dense
+                   (the partitioned step's local matmuls, launch.dryrun,
+                   plus the recurrence work below over n_devices; where
+                   no partitioned step is counted, flops / n_devices)
     memory_s     = (argument + output bytes per device) / 3.35e12
                    the least traffic a step must move: each input read
                    once and each laid-out output written once (not XLA's
                    "bytes accessed", which the port cannot derive)
-    collective_s = null: nothing derives the collectives' bytes
+    collective_s = collective_total / 50e9
+                   the partitioned step's collective result bytes per
+                   device over one 400 Gb/s ConnectX-7 NDR port, the one
+                   InfiniBand port a GPU has in a DGX H100. That link and
+                   not NVLink's 450 GB/s a direction: an NVLink domain is
+                   one node of 8 GPUs, and the 16x16 mesh's `model` axis
+                   (16 ranks) is wider than a node, so every collective
+                   along it crosses nodes, and one along `data` (or `pod`)
+                   does anyway; a ring along `model` runs at the speed of
+                   its slowest hop, the inter-node one
     MODEL_FLOPS  = 6 * N_active * tokens (train) / 2 * N_active * tokens
     useful ratio = MODEL_FLOPS / flops
     roofline fraction = (MODEL_FLOPS / (n_devices * peak)) / max(terms)
+`dominant`, `bound_s` and the fraction cover the three terms (the
+non-null ones where an arch's partitioned step is queued).
 `flops` is matmul_flops plus the recurrence work FlopCounterMode does not
 see: RG-LRU's scan is elementwise, so the reference's analytic correction
 is added for it; RWKV6's state update goes through einsums the counter
@@ -28,7 +42,8 @@ as no elementwise work is).
 `--measure` runs one real step of a cut cell (--layers, --batch, --seq) on
 one device (CUDA unless --device cpu) and prints the median step time
 against the bound, with the real step's FlopCounterMode count beside the
-meta count and the spec-derived argument bytes beside the real tensors'.
+meta count and the spec-derived argument bytes beside the real tensors';
+one device moves nothing between devices, so its collective_s is 0.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.roofline --arch qwen3-8b \\
@@ -51,8 +66,10 @@ import torch
 from repro_torch.compat import abstract_mesh
 from repro_torch.configs import DASHED, get_config
 from repro_torch.core.context import resolve_device
-from repro_torch.launch.dryrun import (RESULTS_DIR, count_matmul_flops,
-                                       leaves, mesh_of, sharded_bytes)
+from repro_torch.launch.dryrun import (QUEUED_REASON, RESULTS_DIR,
+                                       count_matmul_flops, leaves, mesh_of,
+                                       partitioned_counts, queued,
+                                       sharded_bytes)
 from repro_torch.launch.specs import SHAPES, build_cell, cell_applicable
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
@@ -60,6 +77,7 @@ from repro_torch.train.optim import adamw_init
 
 PEAK_FLOPS = 989.4e12      # H100 SXM bf16 dense FLOP/s
 HBM_BW = 3.35e12           # H100 SXM HBM3 bytes/s
+LINK_BW = 50e9             # one 400 Gb/s ConnectX-7 NDR port, bytes/s
 
 CANONICAL = [k for k in DASHED if "_" not in k]
 
@@ -175,20 +193,34 @@ def extrapolate(arch: str, count, cfg: ArchConfig = None, k1: int = 1,
 
 
 def terms_of(flops: float, arg_bytes: int, out_bytes, n_devices: int,
-             mf: float) -> dict:
-    """The roofline terms over the non-null ones."""
-    compute_s = flops / (n_devices * PEAK_FLOPS)
+             mf: float, flops_per_device=None,
+             collective_total=None) -> dict:
+    """The roofline terms; dominant, bound and fraction over the non-null
+    ones. compute_s takes flops_per_device where given (else flops over
+    the devices); collective_s is collective_total over LINK_BW (None
+    where not counted; 0 on one device)."""
+    compute_s = (flops_per_device if flops_per_device is not None
+                 else flops / n_devices) / PEAK_FLOPS
     memory_s = (arg_bytes + (out_bytes or 0)) / HBM_BW
-    terms = {"compute_s": compute_s, "memory_s": memory_s}
-    dom = max(terms, key=terms.get)
-    return dict(terms, collective_s=None, dominant=dom,
-                bound_s=terms[dom], model_flops=mf,
+    collective_s = (0.0 if n_devices == 1 else None
+                    if collective_total is None
+                    else collective_total / LINK_BW)
+    terms = {"compute_s": compute_s, "memory_s": memory_s,
+             "collective_s": collective_s}
+    live = {k: v for k, v in terms.items() if v is not None}
+    dom = max(live, key=live.get)
+    return dict(terms, dominant=dom,
+                bound_s=live[dom], model_flops=mf,
                 useful_flops_ratio=mf / max(flops, 1.0),
                 roofline_fraction=(mf / (n_devices * PEAK_FLOPS))
-                / max(terms.values()))
+                / max(live.values()))
 
 
-def run_cell(arch: str, shape: str, k1: int = 1, k2: int = 2) -> dict:
+def run_cell(arch: str, shape: str, k1: int = 1, k2: int = 2,
+             partition=None) -> dict:
+    """One cell's roofline record. `partition` is partitioned_counts'
+    result for it on 16x16 (counted here, in a process of its own, when
+    not given; None for a `queued` arch)."""
     mesh = mesh_of(multi_pod=False)
     rec = {"arch": arch, "shape": shape, "mesh": "16x16",
            "n_devices": mesh.size}
@@ -211,6 +243,14 @@ def run_cell(arch: str, shape: str, k1: int = 1, k2: int = 2) -> dict:
         arg_b = sharded_bytes(cell["args"], cell["in_specs"], mesh)
         out_b = (sharded_bytes(cell["outs"], cell["out_specs"], mesh)
                  if cell["outs"] is not None else None)
+        if partition is None and not queued(arch):
+            partition = partitioned_counts([(arch, shape)], False).get(
+                (arch, shape))
+        if isinstance(partition, str):
+            raise RuntimeError(f"partitioned count: {partition}")
+        per_dev = (partition["flops_per_device"] + added / mesh.size
+                   if partition else None)
+        coll = partition["collective_total"] if partition else None
         rec.update(
             status="ok", measure_s=round(time.perf_counter() - t0, 1),
             matmul_flops=full, matmul_flops_k12=k12,
@@ -219,11 +259,16 @@ def run_cell(arch: str, shape: str, k1: int = 1, k2: int = 2) -> dict:
             flops=flops, argument_bytes=arg_b, output_bytes=out_b,
             memory_terms=["argument_bytes"] + (
                 ["output_bytes"] if out_b is not None else []),
+            flops_per_device=per_dev, collective_total=coll,
+            collective_bytes=(partition["collective_bytes"] if partition
+                              else None),
+            partitioner="dtensor",
             **terms_of(flops, arg_b, out_b, mesh.size,
-                       model_flops(arch, shape)),
-            absent={"collective_s": "no sharded step is executed or "
-                                    "compiled, so no collective bytes are "
-                                    "derived"})
+                       model_flops(arch, shape), per_dev, coll),
+            absent=({} if partition else
+                    {k: QUEUED_REASON for k in (
+                        "collective_s", "flops_per_device",
+                        "collective_total", "collective_bytes")}))
     except Exception as e:  # noqa: BLE001
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    tb=traceback.format_exc()[-1500:])
@@ -365,16 +410,22 @@ def main(argv=None):
     archs = [args.arch] if args.arch else CANONICAL
     shapes = [args.shape] if args.shape else list(SHAPES)
     n_err = 0
+    parts = partitioned_counts([(a, s) for a in archs for s in shapes
+                                if cell_applicable(get_config(a), s)[0]],
+                               False)
     with open(out_path, "a") as f:
         for arch in archs:
             for shape in shapes:
-                rec = run_cell(arch, shape)
+                rec = run_cell(arch, shape, partition=parts.get((arch, shape)))
                 f.write(json.dumps(rec) + "\n")
                 f.flush()
                 if rec["status"] == "ok":
+                    coll = ("      null" if rec["collective_s"] is None
+                            else f"{rec['collective_s'] * 1e3:9.3f}ms")
                     print(f"[ok] {arch:24s} {shape:12s} "
                           f"comp={rec['compute_s'] * 1e3:9.3f}ms "
                           f"mem={rec['memory_s'] * 1e3:9.3f}ms "
+                          f"coll={coll} "
                           f"dom={rec['dominant'][:-2]:8s} "
                           f"rf={rec['roofline_fraction']:.3f} "
                           f"k12_gap={rec['k12_gap']:+.2e}", flush=True)

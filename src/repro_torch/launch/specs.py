@@ -10,14 +10,18 @@ The PyTorch counterpart of ``repro.launch.specs``. Shapes:
                  archs only (rwkv6, recurrentgemma); full-attention archs
                  skip.
 
-The specs are resolved on the given mesh (compat.AbstractMesh or
-launch.mesh.Mesh). The step is the port's one-rank step, built on a
-device-less mesh of one rank: the port executes no sharded step, so a
-cell's step is the whole (unsharded) computation, and its specs say how
-the reference lays that computation out over the mesh. A decode step is
-given `pos` as a Python int, seq - 1 (the reference's is an abstract
-int32 scalar): the decode attention masks over every cache slot, so its
-matmuls do not depend on the position.
+The specs are resolved on the given mesh. On a launch.mesh.Mesh (the dry
+run's: `launch.mesh.fake_production_mesh`, meta tensors over a fake
+process group of 256 or 512 ranks) the cell is the partitioned step:
+its arguments are meta DTensors laid out by the specs, and its step runs
+the models' DTensor path on that mesh. On a compat.AbstractMesh the
+step is the whole (unsharded) computation, built on a device-less mesh
+of one rank (`step_mesh`), and the specs say how the reference lays it
+out: the dry run's `matmul_flops` and roofline's `--measure` count and
+run that one. A decode step is given `pos` as a Python int, seq - 1
+(the reference's is an abstract int32 scalar): the decode attention
+masks over every cache slot, so its matmuls do not depend on the
+position.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro_torch.compat import abstract_mesh
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.dtensor import distribute
 from repro_torch.sharding.rules import normalize, serving_rules
 from repro_torch.train.optim import abstract_adamw_state, adamw_state_specs
 
@@ -81,8 +86,8 @@ def _axes_prod(mesh, axes) -> int:
 
 
 def step_mesh(mesh):
-    """The one-rank device-less mesh a cell's step runs on: `mesh`'s axes,
-    each of size 1."""
+    """The one-rank device-less mesh the unsharded step of a cell on a
+    compat.AbstractMesh runs on: `mesh`'s axes, each of size 1."""
     return abstract_mesh((1,) * len(mesh.axis_names), mesh.axis_names)
 
 
@@ -106,23 +111,27 @@ def build_cell(arch_name: str, shape_name: str, mesh,
     if not ok:
         return {"skip": True, "reason": why, "cfg": cfg}
 
-    one = step_mesh(mesh)
-    params_abs = M.abstract_params(cfg)
+    split = hasattr(mesh, "device_mesh")     # a launch.mesh.Mesh: ranks
+    one = mesh if split else step_mesh(mesh)
     meta = {"arch": cfg.name, "shape": shape_name, "kind": kind,
             "batch": b, "seq": s}
 
+    def lay(tree, specs):
+        return M.distribute_tree(tree, specs, mesh) if split else tree
+
     if kind == "train":
         pspecs = M.param_specs(cfg, mesh)
+        params_abs = lay(M.abstract_params(cfg), pspecs)
         batch_abs = _batch_abstract(cfg, b, s, with_labels=True)
+        bspecs = _batch_specs(cfg, batch_abs, mesh)
         opt_abs = abstract_adamw_state(params_abs)
         ospecs = adamw_state_specs(pspecs, mesh)
         metric_names = ["ce", "loss", "grad_norm"] + (
             ["aux"] if cfg.n_experts else []) + (
             ["mtp_ce"] if cfg.mtp else [])
         return dict(skip=False, fn=M.make_train_step(cfg, one),
-                    args=(params_abs, opt_abs, batch_abs),
-                    in_specs=(pspecs, ospecs,
-                              _batch_specs(cfg, batch_abs, mesh)),
+                    args=(params_abs, opt_abs, lay(batch_abs, bspecs)),
+                    in_specs=(pspecs, ospecs, bspecs),
                     out_specs=(pspecs, ospecs,
                                {k: REPLICATED for k in sorted(metric_names)}),
                     outs=(params_abs, opt_abs,
@@ -133,9 +142,11 @@ def build_cell(arch_name: str, shape_name: str, mesh,
     if kind == "prefill":
         pspecs = M.param_specs(cfg, mesh)
         batch_abs = _batch_abstract(cfg, b, s, with_labels=False)
+        bspecs = _batch_specs(cfg, batch_abs, mesh)
         return dict(skip=False, fn=M.make_prefill_step(cfg, one),
-                    args=(params_abs, batch_abs),
-                    in_specs=(pspecs, _batch_specs(cfg, batch_abs, mesh)),
+                    args=(lay(M.abstract_params(cfg), pspecs),
+                          lay(batch_abs, bspecs)),
+                    in_specs=(pspecs, bspecs),
                     out_specs=None, outs=None, meta=meta, cfg=cfg)
 
     # decode: serving rules (TP-only weights, the cache's seq over model)
@@ -147,7 +158,13 @@ def build_cell(arch_name: str, shape_name: str, mesh,
     tok_abs = _meta((b,), torch.int32)
     tok_spec = (normalize((dp,)) if dp and b % _axes_prod(mesh, dp) == 0
                 else REPLICATED)
-    return dict(skip=False, fn=M.make_serve_step(cfg),
+    if split:
+        params_abs = lay(M.abstract_params(cfg), pspecs)
+        cache_abs = lay(cache_abs, cspecs)
+        tok_abs = distribute(tok_abs, mesh, tok_spec)
+    else:
+        params_abs = M.abstract_params(cfg)
+    return dict(skip=False, fn=M.make_serve_step(cfg, one),
                 args=(params_abs, cache_abs, tok_abs, s - 1),
                 in_specs=(pspecs, cspecs, tok_spec, REPLICATED),
                 out_specs=(tok_spec, cspecs), outs=(tok_abs, cache_abs),

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.dtensor import is_dtensor as sd_is_dtensor, mm
 
 F32 = torch.float32
 
@@ -47,10 +48,10 @@ def apply_rope(x, cos, sin):
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    g = torch.einsum("bsd,df->bsf", x, w_gate)
-    u = torch.einsum("bsd,df->bsf", x, w_up)
+    g = mm("bsd,df->bsf", x, w_gate)
+    u = mm("bsd,df->bsf", x, w_up)
     h = F.silu(g.to(F32)).to(x.dtype) * u
-    return torch.einsum("bsf,fd->bsd", h, w_down)
+    return mm("bsf,fd->bsd", h, w_down)
 
 
 # ---------------------------------------------------------------------------
@@ -153,13 +154,25 @@ def _divisor_chunk(skv: int, target: int = 1024) -> int:
 
 
 def cross_attention(x, memory, p, cfg: ArchConfig):
-    """Non-causal attention from x to `memory` (vision/audio/encoder)."""
-    b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.resolved_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"]).transpose(1, 2)
-    kx = torch.einsum("bsd,dhk->bshk", memory, p["wk"]).transpose(1, 2)
-    vx = torch.einsum("bsd,dhk->bshk", memory, p["wv"]).transpose(1, 2)
-    o = flash_attention(q, kx, vx, causal=False,
-                        chunk=_divisor_chunk(memory.shape[1]))
-    o = o.transpose(1, 2).reshape(b, s, h * dh)
-    return torch.einsum("bse,ed->bsd", o, p["wo"])
+    """Non-causal attention from x to `memory` (vision/audio/encoder).
+    On DTensors the attention between the projections runs in
+    `attention._attend_island`."""
+    dh = cfg.resolved_head_dim
+    q = mm("bsd,dhk->bshk", x, p["wq"])
+    kx = mm("bsd,dhk->bshk", memory, p["wk"])
+    vx = mm("bsd,dhk->bshk", memory, p["wv"])
+    chunk = _divisor_chunk(memory.shape[1])
+
+    def attend(q, k, v, norms, lcfg, sl):
+        bl, sq = q.shape[:2]
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        o = flash_attention(q, k[:, sl[0]:sl[1]], v[:, sl[0]:sl[1]],
+                            causal=False, chunk=chunk)
+        return (o.transpose(1, 2).reshape(bl, sq, lcfg.n_heads * dh), k, v)
+
+    if sd_is_dtensor(q):
+        from repro_torch.models.attention import _attend_island
+        o = _attend_island(q, kx, vx, (), cfg, attend)[0]
+    else:
+        o = attend(q, kx, vx, (), cfg, (0, kx.shape[2]))[0]
+    return mm("bse,ed->bsd", o, p["wo"])

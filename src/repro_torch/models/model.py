@@ -13,6 +13,21 @@ writes a stacked leaf's gradient once, the layers' gradients side by
 side, as the reference's scan does. The reference's `jax.checkpoint`
 (its "full" remat policy) is `torch.utils.checkpoint` on the same block
 bodies: a block's activations are recomputed in the backward pass.
+
+The partitioned step. The reference jits its steps over a mesh and XLA's
+SPMD partitioner lays them out. Here the same functions run on DTensors:
+`distribute_params` and `distribute_cache` (`abstract_params` and
+`abstract_cache` with a mesh, on meta tensors) lay the trees out by
+`param_specs` / `cache_specs` on a `launch.mesh.Mesh`, `data.pipeline.
+shard_batch` the batch, and DTensor's sharding propagation lays out the
+rest; the products with a weight, the embedding, the cross entropy
+(`sharding.dtensor`), the attention blocks (`models.attention`) and the
+MoE layer (`_moe_island`) run in islands on each rank's block. The
+DTensor path is taken when the parameters are DTensors: on a mesh of
+more than one rank they must be; on a mesh of one rank (launch/serve and
+launch/train run on one) plain tensors keep the plain path, and a caller
+that distributes its parameters asks for the DTensor path explicitly.
+rwkv6, recurrentgemma and llama-3.2-vision have no partitioned step yet.
 """
 from __future__ import annotations
 
@@ -33,6 +48,7 @@ from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (apply_rope, cross_attention, rmsnorm,
                                        rope_angles, swiglu)
+from repro_torch.sharding import dtensor as sd
 from repro_torch.sharding.rules import default_rules, spec_for_shape
 
 F32 = torch.float32
@@ -305,12 +321,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None):
     return tree_map(draw, param_schema(cfg))
 
 
-def abstract_params(cfg: ArchConfig):
+def abstract_params(cfg: ArchConfig, mesh=None, rules=None):
     """The parameter tree's shapes and dtype as meta tensors (the
-    reference's ShapeDtypeStructs): nothing is allocated."""
+    reference's ShapeDtypeStructs): nothing is allocated. With a mesh,
+    meta DTensors laid out by param_specs (`distribute_params`'s)."""
     dt = dtype_of(cfg)
-    return tree_map(lambda ps: torch.empty(ps.shape, dtype=dt, device="meta"),
+    tree = tree_map(lambda ps: torch.empty(ps.shape, dtype=dt, device="meta"),
                     param_schema(cfg))
+    return tree if mesh is None else distribute_params(tree, cfg, mesh,
+                                                       rules)
 
 
 def logical_axes(cfg: ArchConfig):
@@ -327,6 +346,22 @@ def param_specs(cfg: ArchConfig, mesh, rules=None):
     """The parameter tree's specs on `mesh` (sharding.rules' tuples; the
     reference returns NamedShardings of the same PartitionSpecs)."""
     return _specs(param_schema(cfg), mesh, rules)
+
+
+def distribute_tree(tree, specs, mesh):
+    """Every leaf of `tree` (the whole tensor, the same on every rank) as
+    a DTensor laid out by its spec on `mesh`: each rank keeps its block."""
+    return {k: (distribute_tree(tree[k], specs[k], mesh)
+                if isinstance(tree[k], dict)
+                else sd.distribute(tree[k], mesh, specs[k]))
+            for k in sorted(tree)}
+
+
+def distribute_params(params, cfg: ArchConfig, mesh, rules=None):
+    """The parameter tree as DTensors laid out by param_specs on `mesh`
+    (a launch.mesh.Mesh): the reference's NamedSharding(mesh, spec) of
+    each leaf, its device_put."""
+    return distribute_tree(params, param_specs(cfg, mesh, rules), mesh)
 
 
 def tensor_from_numpy(a) -> torch.Tensor:
@@ -368,31 +403,28 @@ def _self_attn(x, bp, cfg, positions):
 def _moe_layer(x, bp, cfg, mesh, variant="auto"):
     """x (B,S,D) -> (B,S,D), aux. "auto" chooses all_to_all when the
     tokens split evenly over the data-parallel and model ranks with at
-    least 8 a rank, else the psum schedule (the reference's rule);
-    decode asks for "psum", which needs no mesh (None). The port runs the
-    model on one rank: every expert and every token is on it. The mesh is
-    a launch.mesh.Mesh of one rank, or a compat.AbstractMesh of one (the
-    dry run's count on meta tensors), whose all_to_all keeps its blocks:
-    both run the all_to_all schedule, so they count the same matmuls."""
+    least 8 a rank, else the psum schedule (the reference's rule); decode
+    asks for "psum". On plain tensors the model runs on one rank: every
+    expert and every token is on it, and the mesh is a launch.mesh.Mesh
+    of one rank, or a compat.AbstractMesh of one (the dry run's unsharded
+    count on meta tensors), whose all_to_all keeps its blocks; decode's
+    psum needs no mesh (None). On DTensors the layer is `_moe_island`."""
     b, s, d = x.shape
     h = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps)
     tokens = h.reshape(b * s, d)
     m = bp["moe"]
     experts = {k: m[k] for k in ("w_router", "w_gate", "w_up", "w_down")}
-    ranks = 1
-    if mesh is not None:
-        ranks = math.prod(mesh.shape.values())
-        if ranks != 1:
-            raise ValueError(f"the MoE layer runs on one rank; the mesh "
-                             f"{mesh.shape} has {ranks}")
-    use_a2a = (variant == "a2a" or
-               (variant == "auto" and (b * s) % ranks == 0
-                and (b * s) // ranks >= 8))
-    if use_a2a:
-        out, aux = moe_mod.moe_all_to_all(tokens, experts, cfg, mesh)
+    if sd.is_dtensor(tokens):
+        out, aux = _moe_island(tokens, experts, cfg, mesh, variant)
+        out = out.reshape(b, s, d)
     else:
-        out, aux = moe_mod.moe_psum(tokens, experts, cfg)
-    out = out.reshape(b, s, d)
+        # plain tensors run on one rank (`_partitioned` refuses more)
+        use_a2a = variant == "a2a" or (variant == "auto" and b * s >= 8)
+        if use_a2a:
+            out, aux = moe_mod.moe_all_to_all(tokens, experts, cfg, mesh)
+        else:
+            out, aux = moe_mod.moe_psum(tokens, experts, cfg)
+        out = out.reshape(b, s, d)
     if cfg.n_shared_experts:
         sh = m["shared"]
         out = out + swiglu(h, sh["w_gate"], sh["w_up"], sh["w_down"])
@@ -400,6 +432,66 @@ def _moe_layer(x, bp, cfg, mesh, variant="auto"):
         dn = m["dense"]
         out = out + swiglu(h, dn["w_gate"], dn["w_up"], dn["w_down"])
     return x + out, aux
+
+
+def _moe_island(tokens, experts, cfg, mesh, variant):
+    """The reference's shard_map of the MoE layer, as an island on each
+    rank's block. Tokens (T, D): a2a splits them over the data axes and
+    `model` (the reference's tok_spec), psum over the data axes only;
+    experts P("model", None, None), the router whole. -> (out laid out
+    over the data axes, aux).
+
+    aux copies the reference (ROADMAP §3, F11): its shard_map returns
+    each device's own aux under out_specs P(), so every rank keeps the aux
+    of its own tokens (a rank's loss reads its own; the host reads rank
+    0's), while the gradient is the mean over ranks of each rank's aux
+    gradient (shard_map's transpose divides an unmapped output's cotangent
+    by the number of devices)."""
+    dm = mesh.device_mesh
+    dp = sd.dp_axes(dm)
+    dp_n = math.prod(mesh.axis_size(a) for a in dp)
+    model_n = mesh.axis_size("model")
+    t = tokens.shape[0]
+    use_a2a = (variant == "a2a" or
+               (variant == "auto" and t % (dp_n * model_n) == 0
+                and t // (dp_n * model_n) >= 8))
+    every = dp + ("model",)
+    if use_a2a:
+        tok_pl = tok_grad = sd.pl(dm, (every, None))
+    else:
+        tok_pl = sd.pl(dm, (dp, None))
+        tok_grad = sd.pl(dm, (dp, None), ("model",))
+    w_pl = sd.pl(dm, ("model", None, None))
+    n = mesh.size
+
+    def local(x, wr, wg, wu, wd):
+        p = {"w_router": wr, "w_gate": wg, "w_up": wu, "w_down": wd}
+        if use_a2a:
+            out, aux = moe_mod.moe_all_to_all(x, p, cfg, mesh)
+        else:
+            out, aux = moe_mod.moe_psum(x, p, cfg, mesh)
+        return out, sd.scale_grad(aux, 1.0 / n)
+
+    out, aux = sd.island(
+        local, dm,
+        (tokens, experts["w_router"], experts["w_gate"], experts["w_up"],
+         experts["w_down"]),
+        (tok_pl, sd.pl(dm, ()), w_pl, w_pl, w_pl),
+        (tok_pl, sd.pl(dm, ())),
+        (tok_grad, sd.pl(dm, (), every), sd.pl(dm, ("model", None, None),
+                                               dp),
+         sd.pl(dm, ("model", None, None), dp),
+         sd.pl(dm, ("model", None, None), dp)))
+    return sd.constrain(out, sd.pl(dm, (dp, None))), aux
+
+
+def _batch_constraint(x, mesh):
+    """The reference's with_sharding_constraint of the batch dim over the
+    data axes, the rest replicated (a no-op on plain tensors)."""
+    if not sd.is_dtensor(x):
+        return x
+    dm = x.device_mesh
+    return sd.constrain(x, sd.pl(dm, (sd.dp_axes(dm),)))
 
 
 # ---------------------------------------------------------------------------
@@ -439,11 +531,15 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
     """Returns (logits, mtp_logits, aux_loss, cache_or_None).
 
     batch: tokens (B,S) [+ images (B,Timg,D) | frames (B,Senc,D)]. `mesh`
-    (a launch.mesh.Mesh of one rank) carries the MoE layers' all_to_all.
+    (a launch.mesh.Mesh) carries the MoE layers' collectives; with
+    DTensor parameters and batch (`distribute_params`,
+    `data.pipeline.shard_batch`) this is the partitioned step on it.
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = F.embedding(tokens, params["embed"]).to(dtype_of(cfg))
+    partitioned = _partitioned(params, cfg, mesh)
+    x = sd.embedding(tokens, params["embed"]).to(dtype_of(cfg))
+    x = _batch_constraint(x, mesh)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
@@ -451,10 +547,10 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
 
     def dense_block(h, bp):
         h, kv = _self_attn(h, bp, cfg, positions)
-        return _mlp(h, bp, cfg), kv
+        return _batch_constraint(_mlp(h, bp, cfg), mesh), kv
 
     if cfg.enc_dec:
-        frames = batch["frames"].to(x.dtype)
+        frames = _batch_constraint(batch["frames"].to(x.dtype), mesh)
         enc_pos = torch.arange(frames.shape[1], dtype=torch.int32,
                                device=x.device).expand(frames.shape[:2])
 
@@ -550,7 +646,9 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
             return h, (kv, aux)
 
         x, outs = _scan(_remat(moe_block), x, params["moe_blocks"])
-        aux_total = aux_total + torch.sum(torch.stack([a for _, a in outs]))
+        aux_sum = torch.sum(torch.stack([a for _, a in outs]))
+        # a DTensor's sum stands alone: DTensor ops take no plain tensor
+        aux_total = aux_sum if partitioned else aux_total + aux_sum
         if collect_cache:
             caches = {"kv_dense": (_stack_outs(kv_dense)
                                    if kv_dense is not None else None),
@@ -564,16 +662,41 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"])
-    logits = torch.einsum("bsd,dv->bsv", x, head)
+    logits = sd.mm("bsd,dv->bsv", x, head)
 
     mtp_logits = None
     if cfg.mtp:
         h2 = rmsnorm(x, params["mtp_norm"], cfg.norm_eps)
         h2, _ = _self_attn(h2, params["mtp_block"], cfg, positions)
         h2 = _mlp(h2, params["mtp_block"], cfg)
-        mtp_logits = torch.einsum("bsd,dv->bsv", h2, head)
+        mtp_logits = sd.mm("bsd,dv->bsv", h2, head)
 
     return logits, mtp_logits, aux_total, (caches if collect_cache else None)
+
+
+def has_partitioned_step(cfg: ArchConfig) -> bool:
+    """Whether the DTensor path covers `cfg`'s stack: not yet rwkv, rglru
+    or cross-attention-period stacks (queued, ROADMAP §1)."""
+    return not (cfg.rwkv or cfg.rglru or cfg.xattn_period)
+
+
+def _partitioned(params, cfg: ArchConfig, mesh) -> bool:
+    """True for the partitioned step (DTensor parameters). Plain
+    parameters run the whole step on each rank, so they are refused on a
+    mesh of more than one rank, as a DTensor step is for a stack
+    `has_partitioned_step` does not cover."""
+    if sd.is_dtensor(params["embed"]):
+        if not has_partitioned_step(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: no partitioned step for rwkv, rglru or "
+                f"cross-attention-period stacks yet (queued, ROADMAP §1)")
+        return True
+    ranks = 1 if mesh is None else math.prod(mesh.shape.values())
+    if ranks != 1:
+        raise ValueError(f"plain tensors on a mesh of {ranks} ranks: "
+                         f"distribute the parameters (distribute_params) "
+                         f"for the partitioned step")
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -582,7 +705,12 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
 
 def _ce(logits, labels):
     """CE without materializing (B,S,V) f32 log-probs: gather the label
-    logit first, reduce the logsumexp in f32 on the fly."""
+    logit first, reduce the logsumexp in f32 on the fly (on DTensors,
+    sharding.dtensor.cross_entropy's vocab-split island)."""
+    return sd.cross_entropy(logits, labels, _ce_plain)
+
+
+def _ce_plain(logits, labels):
     label_logit = torch.gather(logits, -1, labels[..., None].long())[
         ..., 0].to(F32)
     m = logits.amax(-1).to(F32)
@@ -626,6 +754,12 @@ def make_train_step(cfg: ArchConfig, mesh, learning_rate: float = 3e-4,
                                     mesh)
             grads = torch.autograd.grad(loss, leaves)
         del leaves, loss
+        # a DTensor gradient into its parameter's layout (the reference's
+        # GSPMD gives each gradient its parameter's sharding): a partial
+        # sum is reduce-scattered or all-reduced here
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if sd.is_dtensor(g) else g
+                 for g, (_, p) in zip(grads, tree_items(params))]
         grads, gnorm = clip_by_global_norm(tree_unflatten(paths, grads),
                                            grad_clip)
         params, opt_state = adamw_update(params, grads, opt_state,
@@ -724,9 +858,11 @@ def cache_schema(cfg: ArchConfig, batch: int, s_max: int) -> Dict[str, Any]:
     return kv(cfg.n_layers)
 
 
-def abstract_cache(cfg: ArchConfig, batch: int, s_max: int):
+def abstract_cache(cfg: ArchConfig, batch: int, s_max: int, mesh=None,
+                   rules=None):
     """The cache's shapes and dtypes as meta tensors: the ring positions
-    (top-level `pos_*`/`tpos_*`) are int32, every other leaf cfg.dtype."""
+    (top-level `pos_*`/`tpos_*`) are int32, every other leaf cfg.dtype.
+    With a mesh, meta DTensors laid out by cache_specs."""
     dt = dtype_of(cfg)
 
     def meta(ps: PSpec, d=dt):
@@ -738,11 +874,20 @@ def abstract_cache(cfg: ArchConfig, batch: int, s_max: int):
                           else dt)
         else:
             out[k] = tree_map(meta, v)
-    return out
+    return out if mesh is None else distribute_cache(out, cfg, mesh, batch,
+                                                     s_max, rules)
 
 
 def cache_specs(cfg: ArchConfig, mesh, batch: int, s_max: int, rules=None):
     return _specs(cache_schema(cfg, batch, s_max), mesh, rules)
+
+
+def distribute_cache(cache, cfg: ArchConfig, mesh, batch: int, s_max: int,
+                     rules=None):
+    """The cache tree as DTensors laid out by cache_specs on `mesh` (the
+    serving rules for decode)."""
+    return distribute_tree(cache, cache_specs(cfg, mesh, batch, s_max,
+                                              rules), mesh)
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, device):
@@ -799,12 +944,17 @@ def _rglru_layer(x, bp, cfg, conv_st, lru_st):
     return _mlp(x + o, bp, cfg), conv_st, lru.to(lru_st.dtype)
 
 
-def decode_forward(params, cfg: ArchConfig, cache, tokens, pos):
+def decode_forward(params, cfg: ArchConfig, cache, tokens, pos, mesh=None):
     """One decode step. tokens (B,) int; pos: int (current index).
     Returns (logits (B,V), cache): the cache's tensors are updated in
-    place, and the returned tree is the one passed in."""
+    place, and the returned tree is the one passed in. `mesh` carries the
+    MoE layers' psum (the reference passes its mesh); it may be None on
+    plain tensors."""
     pos = int(pos)
-    x = params["embed"][tokens][:, None, :].to(dtype_of(cfg))
+    if _partitioned(params, cfg, mesh):
+        x = sd.embedding(tokens, params["embed"])[:, None, :].to(dtype_of(cfg))
+    else:
+        x = params["embed"][tokens][:, None, :].to(dtype_of(cfg))
 
     def dense_decode(h, bp, kc, vc):
         hn = rmsnorm(h, bp["attn_norm"], cfg.norm_eps)
@@ -826,7 +976,7 @@ def decode_forward(params, cfg: ArchConfig, cache, tokens, pos):
             bp = _layer(params[blocks_key], i)
             x = mla_dec(x, bp, cache["moe"][i])
             if cfg.n_experts:
-                x, _ = _moe_layer(x, bp, cfg, None, variant="psum")
+                x, _ = _moe_layer(x, bp, cfg, mesh, variant="psum")
             else:
                 x = _mlp(x, bp, cfg)
 
@@ -906,7 +1056,7 @@ def decode_forward(params, cfg: ArchConfig, cache, tokens, pos):
             hn = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
             o, _ = attn.gqa_decode(hn, bp["attn"], cfg,
                                    (cache["k"][i], cache["v"][i]), pos)
-            x, _ = _moe_layer(x + o, bp, cfg, None, variant="psum")
+            x, _ = _moe_layer(x + o, bp, cfg, mesh, variant="psum")
 
     else:
         for i in range(cfg.n_layers):
@@ -915,13 +1065,13 @@ def decode_forward(params, cfg: ArchConfig, cache, tokens, pos):
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.einsum("bsd,dv->bsv", x[:, 0:1], head)[:, 0]
+    logits = sd.mm("bsd,dv->bsv", x[:, 0:1], head)[:, 0]
     return logits, cache
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, mesh=None):
     def serve_step(params, cache, tokens, pos):
-        logits, cache = decode_forward(params, cfg, cache, tokens, pos)
+        logits, cache = decode_forward(params, cfg, cache, tokens, pos, mesh)
         next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tokens, cache
     return serve_step

@@ -4,9 +4,12 @@ The PyTorch counterpart of ``repro.models.moe``: `router`,
 `_dispatch_indices`, `expert_ffn`, `moe_psum`, `moe_all_to_all` and
 `moe_reference` (a test oracle).
 
-* `moe_psum` is the reference's shard_map body at one rank, the (1, 1)
-  host mesh the reference's decode runs on: the rank holds every expert
-  and the psum is the identity.
+* `moe_psum` (any token count, decode included): every rank along the
+  mesh's `model` axis holds the same tokens and its own block of the
+  experts; it runs only its experts and the partial outputs are summed
+  over `model` (`sharding.dtensor.psum`, an all-reduce on the mesh's
+  group). Without a mesh, or at one rank, the rank holds every expert and
+  there is nothing to sum.
 * `moe_all_to_all` (training/prefill) puts each expert's slots in a
   per-expert buffer and moves them to the experts' owners with one
   all_to_all along the mesh's `model` axis (`Mesh.all_to_all`, which has
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.dtensor import psum
 
 F32 = torch.float32
 
@@ -102,14 +106,32 @@ def _combine(out_buf, slot, weights, x):
     return combined.to(x.dtype)
 
 
-def moe_psum(x, p, cfg: ArchConfig):
-    """x (T, D) -> (combined (T, D), aux), every expert on this rank."""
+def moe_psum(x, p, cfg: ArchConfig, mesh=None, axis: str = "model"):
+    """x (T, D): the same tokens on every rank along `axis`; p's expert
+    weights hold this rank's E_local = E / (ranks along `axis`) experts
+    (every expert without a mesh). -> (combined (T, D), aux)."""
     t, _ = x.shape
+    e = cfg.n_experts
+    e_local = p["w_gate"].shape[0]
+    n = 1 if mesh is None else mesh.axis_size(axis)
+    if e_local * n != e:
+        raise ValueError(f"{e_local} local experts on each of {n} ranks "
+                         f"along {axis!r}; the config has {e}")
     weights, ids, aux, _ = router(x, p["w_router"], cfg.top_k)
-    buf, slot = _dispatch(x, ids, cfg.n_experts, capacity_of(t, cfg),
-                          cfg.top_k)
-    out_buf = expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"])
-    return _combine(out_buf, slot, weights, x), aux
+    capacity = capacity_of(t, cfg)
+    buf, slot = _dispatch(x, ids, e, capacity, cfg.top_k)
+    if n == 1:
+        out_buf = expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"])
+        return _combine(out_buf, slot, weights, x), aux
+    # run this rank's experts only; the others' rows stay 0 and come from
+    # their owners through the sum
+    lo = mesh.axis_index(axis) * e_local
+    mine = expert_ffn(buf[lo:lo + e_local], p["w_gate"], p["w_up"],
+                      p["w_down"])
+    out_buf = torch.cat([buf.new_zeros((lo,) + buf.shape[1:]), mine,
+                         buf.new_zeros((e - lo - e_local,) + buf.shape[1:])])
+    return psum(_combine(out_buf, slot, weights, x), mesh.device_mesh,
+                axis), aux
 
 
 def moe_all_to_all(x, p, cfg: ArchConfig, mesh, axis: str = "model"):

@@ -11,9 +11,11 @@ divides the dim size. Non-divisible or exhausted dims replicate.
 A spec is a tuple with one entry per dim: None (replicated), a mesh axis
 name, or a tuple of axis names used jointly. Entry for entry it is the
 reference's ``PartitionSpec``, normalised as that is: a one-axis tuple is
-its axis name and an empty one None. The port executes no sharded step:
-specs say how a cell would be laid out, and `shard_shape` gives each
-device's block of a leaf (`launch.dryrun` sums its bytes).
+its axis name and an empty one None. `shard_shape` gives each device's
+block of a leaf (`launch.dryrun` sums its bytes), and `placements` turns
+a spec into the DTensor placements on a `launch.mesh.Mesh`'s DeviceMesh
+(the reference's ``NamedSharding(mesh, spec)``), by which the
+partitioned step lays its tensors out.
 """
 from __future__ import annotations
 
@@ -165,5 +167,31 @@ def shard_shape(mesh, spec: Spec, shape: Sequence[int]) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def placements(mesh, spec: Spec) -> tuple:
+    """The DTensor placements of `spec` on the axes of `mesh` (a
+    launch.mesh.Mesh or its DeviceMesh), one a mesh axis in axis order:
+    Shard(d) on each axis that tensor dim d
+    is split over, Replicate on the rest. A dim split over several axes,
+    such as ("pod", "data"), is Shard(d) on each, split in the spec's
+    order; DTensor splits a dim over its mesh axes in mesh order, so the
+    spec must name them in that order (every rule of `default_rules`
+    does)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(getattr(mesh, "axis_names", None) or mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        idx = [names.index(a) for a in _axes_of(e)]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: dim {d} is split over {e}, "
+                             f"not in the mesh's axis order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
 __all__ = ["LogicalAxisRules", "Spec", "default_rules", "normalize",
-           "serving_rules", "shard_shape", "spec_for_shape", "tree_specs"]
+           "placements", "serving_rules", "shard_shape", "spec_for_shape",
+           "tree_specs"]

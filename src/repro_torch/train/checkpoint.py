@@ -4,8 +4,11 @@ Format, the reference's: one .npz per checkpoint step (flat key -> array;
 a key is the tree path joined by "__", dict keys in sorted order) and a
 msgpack manifest (step, keys, shapes, dtypes, time), each written to a
 temporary name, fsync'd and renamed, the manifest last; older steps are
-removed beyond `keep`. Restore puts each leaf on the `device` asked for
-(the reference's `shardings`, on one device).
+removed beyond `keep`. Restore puts each leaf on the `device` asked for,
+or lays it out on a `mesh` (the reference's `shardings`: the leaves of a
+checkpoint come back laid out on the current mesh, whatever mesh wrote
+them). A DTensor leaf is saved whole (`full_tensor`, a collective every
+rank of its mesh must join).
 
 bfloat16 leaves are written as the reference writes them: numpy has no
 bfloat16, so the .npz holds a 2-byte void array (`|V2`) of the bf16 bits,
@@ -51,7 +54,10 @@ def _rebuild(tree, flat: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 def _host_copy(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
     """A tensor as (a numpy array the .npz can hold, its dtype's name): a
     copy on the host, bf16 as its bits in a 2-byte void array."""
-    t = leaf.detach().to("cpu", copy=True)
+    leaf = leaf.detach()
+    if hasattr(leaf, "full_tensor"):     # a DTensor: gathered whole
+        leaf = leaf.full_tensor()
+    t = leaf.to("cpu", copy=True)
     name = str(t.dtype).split(".")[-1]
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2"), name
@@ -124,9 +130,12 @@ def _as_tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def restore_checkpoint(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
-                       device=None) -> Tuple[Any, int]:
+                       device=None, mesh=None) -> Tuple[Any, int]:
     """Restore into the structure of `tree_like`, every leaf a tensor of
-    its manifest dtype on `device` (the CPU by default)."""
+    its manifest dtype on `device` (the CPU by default). With `mesh` (a
+    launch.mesh.Mesh), every leaf a DTensor on the mesh's device, laid out
+    as tree_like's DTensor leaf is (e.g. models.abstract_params(cfg,
+    mesh)): the reference's `shardings=`."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -137,9 +146,16 @@ def restore_checkpoint(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
     if flat_keys != manifest["keys"]:
         raise ValueError("checkpoint/model structure mismatch: "
                          f"{set(flat_keys) ^ set(manifest['keys'])}")
+    if mesh is not None:
+        device = mesh.device
     with np.load(path + ".npz") as data:
         out = {k: _as_tensor(data[k], manifest["dtypes"][k]).to(
             device or "cpu") for k in flat_keys}
+    if mesh is not None:
+        from repro_torch.sharding import dtensor as sd
+        like = _flatten(tree_like)
+        out = {k: sd.distribute(v, mesh, sd.spec_of(like[k]))
+               for k, v in out.items()}
     return _rebuild(tree_like, out), step
 
 

@@ -8,8 +8,8 @@ the cells are built on the production meshes of placeholder host devices
 (512 of them, as repro.launch.dryrun forces), in a process of their own.
 For every (arch x shape) cell on 16x16 and 2x16x16 it writes the
 arguments' paths, shapes and dtypes, the input and output specs by path,
-and one device's argument bytes (the sum of NamedSharding.shard_shape
-bytes).
+one device's argument bytes (the sum of NamedSharding.shard_shape
+bytes) and each argument's NamedSharding.shard_shape.
 """
 import json
 import math
@@ -65,6 +65,8 @@ def main(out):
                             [[p, spec_json(ns)] for p, ns in
                              flat(cell["out_shardings"])]),
                     "arg_bytes": int(arg_bytes),
+                    "shard": [[p, list(ns.shard_shape(a.shape))]
+                              for (p, a), (_, ns) in zip(args, ins)],
                     "meta": cell["meta"],
                 }
     with open(out, "w") as f:

@@ -1,0 +1,70 @@
+"""The inputs of the partitioned-step parity tests, drawn with numpy from a
+fixed seed, the same in the JAX package's process
+(tests/_jax_sharded_step.py) and in the port's ranks
+(tests/_torch_dist_worker.py, scenario ``sharded``).
+
+Each side passes its own parameter and cache schemas (the two packages'
+schemas have the same paths, shapes, scales and logical axes, visited in
+sorted key order), so nothing here imports either package.
+"""
+import numpy as np
+
+ARCHS = ("qwen3-8b", "deepseek-v3-671b", "arctic-480b")
+MESH = (2, 4)                  # (data, model): 8 ranks or host devices
+B, S = 4, 32                   # train and prefill batch
+S_MAX, HISTORY, DECODE_STEPS = 16, 6, 4   # decode: cache slots, filled
+# slots, steps (positions HISTORY .. HISTORY + DECODE_STEPS - 1: across
+# the blocks of two ranks where the cache's sequence splits over model)
+LR = 3e-4                      # make_train_step's default
+SEED = 26
+
+
+def draw_params(leaves):
+    """leaves: [(path, shape, scale)] in sorted key order -> {path: array}:
+    norm weights (scale 1.0, at most two axes) ones, cross-attention gates
+    0.5 (so cross attention reaches the logits), the rest normal x scale,
+    float32."""
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for path, shape, scale in leaves:
+        if path[-1] == "gate":
+            a = np.full(shape, 0.5)
+        elif scale == 1.0 and len(shape) <= 2:
+            a = np.ones(shape)
+        else:
+            a = rng.normal(size=shape) * scale
+        out[path] = a.astype(np.float32)
+    return out
+
+
+def draw_batch(vocab, d_model, enc_dec):
+    rng = np.random.default_rng(SEED + 1)
+    out = {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
+           "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+    if enc_dec:
+        out["frames"] = rng.normal(size=(B, S, d_model)).astype(np.float32)
+    return out
+
+
+def draw_cache(leaves):
+    """leaves: [(path, shape, logical axes)] of the decode cache at batch
+    B and S_MAX slots -> {path: array}: every slot before HISTORY of a
+    leaf with a "seq" axis drawn (the rest 0); the encoder memory whole."""
+    rng = np.random.default_rng(SEED + 2)
+    out = {}
+    for path, shape, logical in leaves:
+        a = np.zeros(shape, np.float32)
+        if path[-1] == "memory":
+            a[...] = rng.normal(size=shape)
+        elif "seq" in logical:
+            ax = logical.index("seq")
+            idx = [slice(None)] * len(shape)
+            idx[ax] = slice(0, HISTORY)
+            a[tuple(idx)] = rng.normal(size=a[tuple(idx)].shape)
+        out[path] = a
+    return out
+
+
+def first_tokens(vocab):
+    return np.random.default_rng(SEED + 3).integers(0, vocab, B).astype(
+        np.int32)

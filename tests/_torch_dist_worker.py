@@ -29,6 +29,16 @@ Scenarios:
   the experts; the output, the aux loss and the gradients of
   sum(out ** 2) + aux with respect to the rank's tokens, router and
   experts.
+* ``sharded ARCH DATA MODEL`` — the partitioned LLM step (DTensors on the
+  DATA x MODEL mesh) of ARCH's smoke config in float32 on
+  tests/_sharded_inputs.py's inputs: forward and loss_fn, one
+  make_train_step step, the prefill step, DECODE_STEPS greedy decode
+  steps under the serving rules, each output gathered whole
+  (`full_tensor`); rank 0 also runs the same steps unsharded (plain
+  tensors, a device-less mesh of one rank) under "plain/...", and counts
+  the collectives of the prefill step cut to one MoE layer (MoE archs)
+  under "count/..." (by kind) and "count_op/..." (by op), and those of
+  one decode step under "count_decode_op/...".
 """
 import os
 import sys
@@ -260,6 +270,154 @@ def scenario_moe(world):
                    x[r * t:(r + 1) * t], mine)
 
 
+def _flat(tree, prefix):
+    """{prefix/path: tensor} of a tree of dicts, tuples and lists (keys in
+    sorted order, sequence items by index: jax's paths)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = {}
+        for i, t in enumerate(tree):
+            out.update(_flat(t, f"{prefix}/{i}"))
+        return out
+    if tree is None:
+        return {}
+    return {prefix: tree}
+
+
+def sharded_setup(arch):
+    """(cfg, whole params, batch, cache) as numpy-drawn trees: the smoke
+    config in float32 and tests/_sharded_inputs.py's draws."""
+    import dataclasses
+    import _sharded_inputs as si
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    schema = list(M.tree_items(M.param_schema(cfg)))
+    drawn = si.draw_params([(p, ps.shape, ps.scale) for p, ps in schema])
+    params = M.tree_unflatten([p for p, _ in schema],
+                              [torch.from_numpy(drawn[p]) for p, _ in schema])
+    batch = si.draw_batch(cfg.vocab, cfg.d_model, cfg.enc_dec)
+    cschema = list(M.tree_items(M.cache_schema(cfg, si.B, si.S_MAX)))
+    cdrawn = si.draw_cache([(p, ps.shape, ps.logical) for p, ps in cschema])
+    cache = M.tree_unflatten([p for p, _ in cschema],
+                             [torch.from_numpy(cdrawn[p]) for p, _ in cschema])
+    return cfg, params, batch, cache
+
+
+def sharded_steps(cfg, params, batch, cache, mesh, put, put_params,
+                  put_cache, gather):
+    """Every step of the partitioned-step scenario: `put` lays a host
+    batch out, `put_params(params, rules)` and `put_cache` the trees,
+    `gather` makes a result whole."""
+    import _sharded_inputs as si
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import serving_rules
+    from repro_torch.train import optim
+    out = {}
+    p = put_params(params, None)
+    b = put(batch)
+    logits, mtp, aux, _ = M.forward(p, cfg, b, mesh)
+    loss, metrics = M.loss_fn(p, cfg, b, mesh)
+    out.update(logits=logits, aux=aux, loss=loss)
+    if mtp is not None:
+        out["mtp"] = mtp
+    out.update(_flat(metrics, "metrics"))
+    step = M.make_train_step(cfg, mesh)
+    new_p, new_o, tm = step(put_params(params, None), optim.adamw_init(p),
+                            b)
+    out.update(_flat(new_p, "new_params"))
+    out.update(_flat({"m": new_o["m"], "v": new_o["v"]}, "opt"))
+    out.update(_flat(tm, "train_metrics"))
+    with torch.no_grad():
+        last, caches = M.make_prefill_step(cfg, mesh)(
+            p, {k: v for k, v in b.items() if k != "labels"})
+        out["prefill_logits"] = last
+        out.update(_flat(caches, "prefill_cache"))
+        rules = serving_rules()
+        dp = put_params(params, rules)
+        c = put_cache(M.tree_map(torch.clone, cache), rules)
+        tok = put({"t": si.first_tokens(cfg.vocab)})["t"]
+        serve = M.make_serve_step(cfg, mesh)
+        for i in range(si.DECODE_STEPS):
+            lg, c = M.decode_forward(dp, cfg, c, tok, si.HISTORY + i, mesh)
+            out[f"decode_logits/{i}"] = lg
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            out[f"decode_tokens/{i}"] = tok
+        out.update(_flat(c, "decode_cache"))
+        # serve_step is decode_forward and the argmax: one more step
+        nt, _ = serve(dp, put_cache(M.tree_map(torch.clone, cache), rules),
+                      put({"t": si.first_tokens(cfg.vocab)})["t"],
+                      si.HISTORY)
+        out["serve_tokens"] = nt
+    return {k: gather(v) for k, v in out.items()}
+
+
+def scenario_sharded(arch, data, model):
+    import dataclasses
+    import _sharded_inputs as si
+    from repro_torch.compat import abstract_mesh
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.dryrun import StepCounter
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    cpu = torch.device("cpu")
+    mesh = Mesh((data, model), ("data", "model"), cpu)
+    cfg, params, batch, cache = sharded_setup(arch)
+    si_b, si_s = si.B, si.S_MAX
+
+    def whole(t):
+        t = t.full_tensor() if hasattr(t, "full_tensor") else t
+        return t.detach().numpy()
+
+    out = sharded_steps(
+        cfg, params, batch, cache, mesh,
+        lambda bt: shard_batch(bt, mesh, torch.float32),
+        lambda p, rules: M.distribute_params(M.tree_map(torch.clone, p),
+                                             cfg, mesh, rules),
+        lambda c, rules: M.distribute_cache(c, cfg, mesh, si_b, si_s, rules),
+        whole)
+    if cfg.n_experts:
+        # the prefill cut to one MoE layer: the reference's HLO holds a
+        # scanned layer's body once
+        cut = dataclasses.replace(cfg, n_layers=cfg.first_k_dense + 1)
+        cp = M.distribute_params(
+            M.init_params(cut, torch.Generator().manual_seed(0), cpu), cut,
+            mesh)
+        pb = shard_batch({k: v for k, v in batch.items() if k != "labels"},
+                         mesh, torch.float32)
+        with torch.no_grad(), StepCounter() as cnt:
+            M.make_prefill_step(cut, mesh)(cp, pb)
+        out.update({f"count/{k}": np.array(v)
+                    for k, v in cnt.collective_bytes.items()})
+        out.update({f"count_op/{k}": np.array(v)
+                    for k, v in cnt.bytes_by_op.items()})
+        # one decode step: the MoE layers' psum route
+        from repro_torch.sharding.rules import serving_rules
+        rules = serving_rules()
+        dp = M.distribute_params(M.tree_map(torch.clone, params), cfg, mesh,
+                                 rules)
+        c = M.distribute_cache(M.tree_map(torch.clone, cache), cfg, mesh,
+                               si_b, si_s, rules)
+        tok = shard_batch({"t": si.first_tokens(cfg.vocab)}, mesh)["t"]
+        with torch.no_grad(), StepCounter() as cnt:
+            M.decode_forward(dp, cfg, c, tok, si.HISTORY, mesh)
+        out.update({f"count_decode_op/{k}": np.array(v)
+                    for k, v in cnt.bytes_by_op.items()})
+    if dist.get_rank() == 0:
+        one = abstract_mesh((1, 1), ("data", "model"))
+        plain = sharded_steps(
+            cfg, params, batch, cache, one,
+            lambda bt: shard_batch(bt, cpu, torch.float32),
+            lambda p, rules: M.tree_map(torch.clone, p),
+            lambda c, rules: c, lambda t: t.detach().numpy())
+        out.update({f"plain/{k}": v for k, v in plain.items()})
+    return out
+
+
 def main(argv):
     scenario, world, rank, store, out_dir = argv[:5]
     world, rank = int(world), int(rank)
@@ -278,6 +436,8 @@ def main(argv):
             out = scenario_limb(variant, data, model)
         elif scenario == "moe":
             out = scenario_moe(world)
+        elif scenario == "sharded":
+            out = scenario_sharded(argv[5], int(argv[6]), int(argv[7]))
         else:
             raise SystemExit(f"unknown scenario {scenario}")
         dist.barrier()

@@ -1,0 +1,146 @@
+"""The port's partitioned layouts and collective counts on meta tensors
+over fake process groups, in a process of their own (a fake group must
+be the process's default group).
+
+    python tests/_torch_fake_counts.py shapes OUT.json
+    python tests/_torch_fake_counts.py toy OUT.json
+    python tests/_torch_fake_counts.py smoke OUT.json
+
+* ``shapes`` — every cell of launch.specs.build_cell on the production
+  meshes of 256 and 512 ranks (launch.mesh.fake_production_mesh): for
+  each DTensor argument (parameters, AdamW state, batch, cache, tokens)
+  its path, its local shape on rank 0 and sharding.rules.shard_shape of
+  its spec, for tests/test_torch_dryrun.py to hold to the reference's
+  NamedSharding.shard_shape.
+* ``toy`` — a two-layer dense toy (TOY) on a (data 2, model 4) mesh of 8
+  fake ranks: launch.dryrun.StepCounter's collective bytes by kind of
+  its prefill step and of its train step, and its parameters' local
+  shapes, for tests/test_torch_sharded_dryrun.py's count by hand.
+* ``smoke`` — the prefill step of the smoke configs of
+  tests/_sharded_inputs.py's ARCHS in float32, cut to one layer of each
+  kind as tests/_jax_sharded_step.py cuts them, at its batch on its
+  (2, 4) mesh of 8 fake ranks: the collective bytes per device by kind,
+  beside which PERF.md sets the reference's HLO count of the same cell.
+"""
+import dataclasses
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+sys.path.insert(0, os.path.dirname(__file__))
+
+import torch  # noqa: E402
+
+TOY = dict(name="toy", family="dense", n_layers=2, d_model=16, d_ff=32,
+           vocab=32, n_heads=4, n_kv_heads=4, head_dim=4, dtype="float32")
+TOY_BATCH, TOY_SEQ = 4, 8
+
+
+def _leaves(tree, specs, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], specs[k], f"{prefix}{k}/")
+    elif isinstance(tree, (tuple, list)):
+        for i, (t, s) in enumerate(zip(tree, specs, strict=True)):
+            yield from _leaves(t, s, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree, specs
+
+
+def shapes():
+    from repro_torch.configs import list_archs
+    from repro_torch.launch.mesh import fake_production_mesh
+    from repro_torch.launch.specs import SHAPES, build_cell
+    from repro_torch.sharding.rules import shard_shape
+    out = {}
+    for multi_pod in (False, True):
+        with fake_production_mesh(multi_pod=multi_pod) as mesh:
+            name = "2x16x16" if multi_pod else "16x16"
+            for arch in list_archs():
+                for shape in SHAPES:
+                    cell = build_cell(arch, shape, mesh)
+                    if cell["skip"]:
+                        continue
+                    out[f"{arch}|{shape}|{name}"] = [
+                        [p, list((x.to_local() if hasattr(x, "to_local")
+                                  else x).shape),
+                         list(shard_shape(mesh, s, x.shape))]
+                        for p, x, s in _leaves(cell["args"],
+                                               cell["in_specs"])
+                        if not isinstance(x, int)]
+    return out
+
+
+def toy():
+    from repro_torch.compat import fake_process_group
+    from repro_torch.launch.dryrun import StepCounter
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ArchConfig
+    from repro_torch.sharding.dtensor import distribute
+    from repro_torch.train.optim import abstract_adamw_state
+    cfg = ArchConfig(**TOY)
+    out = {}
+    with fake_process_group(8):
+        mesh = Mesh((2, 4), ("data", "model"), torch.device("meta"),
+                    device_type="cuda")
+
+        def batch(labels):
+            names = ("tokens", "labels") if labels else ("tokens",)
+            return {k: distribute(torch.empty(TOY_BATCH, TOY_SEQ,
+                                              dtype=torch.int32,
+                                              device="meta"),
+                                  mesh, (("data",), None)) for k in names}
+
+        params = M.abstract_params(cfg, mesh)
+        out["local_shapes"] = {"/".join(p): list(t.to_local().shape)
+                               for p, t in M.tree_items(params)}
+        out["specs"] = {"/".join(p): list(s) for p, s in M.tree_items(
+            M.param_specs(cfg, mesh))}
+        with StepCounter() as c:
+            M.make_prefill_step(cfg, mesh)(params, batch(False))
+        out["prefill"] = c.collective_bytes
+        with StepCounter() as c:
+            M.make_train_step(cfg, mesh)(
+                params, abstract_adamw_state(params), batch(True))
+        out["train"] = c.collective_bytes
+    return out
+
+
+def smoke():
+    import _sharded_inputs as si
+    from repro_torch.compat import fake_process_group
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import StepCounter
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding.dtensor import distribute
+    out = {}
+    with fake_process_group(si.MESH[0] * si.MESH[1]):
+        mesh = Mesh(si.MESH, ("data", "model"), torch.device("meta"),
+                    device_type="cuda")
+        for arch in si.ARCHS:
+            cfg = get_config(arch, smoke=True)
+            cfg = dataclasses.replace(cfg, dtype="float32",
+                                      n_layers=cfg.first_k_dense + 1)
+            params = M.abstract_params(cfg, mesh)
+            tokens = distribute(torch.empty(si.B, si.S, dtype=torch.int32,
+                                            device="meta"), mesh,
+                                (("data",), None))
+            with StepCounter() as c:
+                M.make_prefill_step(cfg, mesh)(params, {"tokens": tokens})
+            out[arch] = c.collective_bytes
+    return out
+
+
+def main(argv):
+    what, path = argv
+    res = {"shapes": shapes, "toy": toy, "smoke": smoke}[what]()
+    with open(path, "w") as f:
+        json.dump(res, f)
+    print("FAKE_COUNTS_OK", len(res))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

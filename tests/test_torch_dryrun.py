@@ -13,7 +13,15 @@ state) against the JAX package's, on the CPU.
   train step equals FlopCounterMode over the same step on real CPU
   tensors (one dense and one MoE smoke config); the k = 1, 2
   extrapolation equals the full-depth count of a homogeneous stack.
-* Records: null absent fields, each with its reason.
+* The partitioned step's layouts: for every argument of every cell
+  (parameters, AdamW state, batch, cache) on both meshes, the DTensor's
+  local shape on a fake group of 256 or 512 ranks
+  (tests/_torch_fake_counts.py, a process of its own) equals
+  sharding.rules.shard_shape and the reference's NamedSharding.shard_shape.
+* Records: the partitioned step's per-device fields (flops_per_device,
+  collective_bytes, collective_total) filled, the compiler's fields null,
+  each with its reason; a queued arch's per-device fields null with
+  theirs; --measure's one-card collective_s 0.
 """
 import dataclasses
 import importlib
@@ -227,7 +235,7 @@ def test_meta_count_equals_real_step(arch):
     assert r["real_matmul_flops"] == r["meta_matmul_flops"] > 0
     assert r["real_argument_bytes"] == r["argument_bytes"]
     assert r["memory_allocated_delta"] is None
-    assert r["ms"] > 0 and r["bound_ms"] > 0 and r["collective_s"] is None
+    assert r["ms"] > 0 and r["bound_ms"] > 0 and r["collective_s"] == 0.0
 
 
 def _train_count(arch, shape="train_4k"):
@@ -268,7 +276,9 @@ def test_roofline_record_recurrence():
         roofline.recurrence_correction("recurrentgemma-2b",
                                        "decode_32k") * 256
     assert rec["flops"] == rec["matmul_flops"] + rec["recurrence_added_flops"]
-    assert rec["collective_s"] is None and "collective_s" in rec["absent"]
+    # a queued arch: no partitioned step, so no collective term
+    assert rec["collective_s"] is None and rec["flops_per_device"] is None
+    assert rec["absent"]["collective_s"] == dryrun.QUEUED_REASON
     assert rec["dominant"] == "memory_s"
     assert rec["compute_s"] == rec["flops"] / (256 * roofline.PEAK_FLOPS)
     assert rec["memory_s"] == (rec["argument_bytes"] + rec["output_bytes"]) \
@@ -293,6 +303,14 @@ def test_dryrun_records(tmp_path):
         for k in dryrun.ABSENT:
             assert r[k] is None and r["absent"][k]
         assert r["matmul_flops"] > 0 and r["output_bytes"] > 0
+        # the partitioned step's per-device fields, counted on the mesh
+        assert r["partitioner"] == "dtensor"
+        assert not set(dryrun.PARTITIONED) & set(r["absent"])
+        assert r["collective_total"] == sum(r["collective_bytes"].values())
+        assert set(r["collective_bytes"]) <= {
+            "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+            "collective-permute"} and r["collective_total"] > 0
+        assert r["flops_per_device"] * r["n_devices"] >= r["matmul_flops"]
     # one count, made once for both meshes
     assert recs[0]["matmul_flops"] == recs[1]["matmul_flops"]
     assert recs[0]["count_s"] == recs[1]["count_s"]
@@ -303,3 +321,41 @@ def test_dryrun_records(tmp_path):
     assert {"output_bytes", "matmul_flops"} <= set(pre["absent"])
     skip = dryrun.run_cell("qwen3-8b", "long_500k", True)
     assert skip["status"] == "skipped" and "sub-quadratic" in skip["reason"]
+
+
+# ---------------------------------------------------------------------------
+# the partitioned step's layouts
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def fake_shapes(tmp_path_factory):
+    out = tmp_path_factory.mktemp("fake") / "shapes.json"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable,
+                        os.path.join(ROOT, "tests", "_torch_fake_counts.py"),
+                        "shapes", str(out)], env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and "FAKE_COUNTS_OK" in r.stdout, \
+        r.stderr[-3000:]
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_partitioned_local_shapes_equal_reference(arch, jax_cells,
+                                                  fake_shapes):
+    """Every parameter, AdamW, batch and cache leaf of the partitioned
+    cells: the DTensor's local block is shard_shape of its spec and the
+    reference's NamedSharding.shard_shape, on both meshes."""
+    n = 0
+    for name in MESHES:
+        for shape in TS.SHAPES:
+            ref = jax_cells[f"{arch}|{shape}|{name}"]
+            if ref["skip"]:
+                continue
+            want = {p: s for p, s in ref["shard"]}
+            for path, local, rule in fake_shapes[f"{arch}|{shape}|{name}"]:
+                assert local == rule == want[path], (shape, name, path)
+                n += 1
+            # every argument but decode's position (an int)
+            assert n and len(want) - (shape.startswith(("decode", "long")))\
+                == len(fake_shapes[f"{arch}|{shape}|{name}"])

@@ -75,6 +75,7 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch.compat, repro_torch.sharding.rules\n"
             "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
             "import repro_torch.launch.roofline\n"
+            "import repro_torch.sharding.dtensor\n"
             "import repro_torch.benchmarks.common\n"
             "import repro_torch.benchmarks.fig1_bandwidth\n"
             "import repro_torch.benchmarks.fig12_workloads\n"
@@ -127,7 +128,8 @@ def test_sources_import_no_reference():
             "launch/train.py", "data/__init__.py", "data/pipeline.py",
             "train/__init__.py", "train/optim.py", "train/checkpoint.py",
             "train/fault.py", "train/compress.py", "compat.py",
-            "sharding/__init__.py", "sharding/rules.py", "launch/specs.py",
+            "sharding/__init__.py", "sharding/rules.py",
+            "sharding/dtensor.py", "launch/specs.py",
             "launch/dryrun.py", "launch/roofline.py",
             "benchmarks/fig1_bandwidth.py", "benchmarks/fig12_workloads.py",
             "benchmarks/fig13_breakdown.py", "benchmarks/fig15_ablations.py",

@@ -562,6 +562,26 @@ def test_checkpoint_roundtrip_gc_and_device(tmp_path):
         tckpt.restore_checkpoint(str(tmp_path / "none"), t)
 
 
+def test_checkpoint_restore_on_mesh(tmp_path, tmesh):
+    """restore_checkpoint(mesh=) gives back DTensors laid out on the mesh
+    as tree_like's are (the reference's shardings=); DTensor leaves are
+    saved whole, and a bf16 leaf comes back bf16 (F7)."""
+    cfg = tconfigs.get_config("qwen3-8b", smoke=True)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    like = TM.distribute_params(TM.tree_map(torch.clone, params), cfg, tmesh)
+    tckpt.save_checkpoint(str(tmp_path), 3, like)
+    restored, step = tckpt.restore_checkpoint(str(tmp_path), like,
+                                              mesh=tmesh)
+    assert step == 3
+    for (_, a), (_, b), (_, c) in zip(TM.tree_items(params),
+                                      TM.tree_items(restored),
+                                      TM.tree_items(like)):
+        assert b.placements == c.placements and b.dtype == torch.bfloat16
+        assert torch.equal(b.full_tensor(), a)
+    assert any(p.is_shard() for _, t in TM.tree_items(restored)
+               for p in t.placements)
+
+
 def test_async_checkpointer_snapshots_at_save(tmp_path):
     """The snapshot is taken when save() is called: an in-place change
     made right after it does not reach the file."""
