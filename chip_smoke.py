@@ -137,7 +137,8 @@ non-zero:
    x shape on the 16x16 mesh with the bytes on 2x16x16 (80 records, 16
    of them long_500k skips), each cell's status, per-device GiB and,
    for DRYRUN_COUNTED's architectures, matmul TFLOPs (FlopCounterMode
-   over the whole step on meta tensors; the CLI counts the others); any
+   over the whole step on meta tensors, rwkv6's and recurrentgemma's time
+   loops one step batched over T; the CLI counts the others); any
    `error`, or an `ok` cell whose per-device argument bytes pass 80 GiB
    on 16x16 without its record saying so, fails the phase. Then the
    roofline checked against real steps on the card (launch/roofline
@@ -149,8 +150,10 @@ non-zero:
    at least the bound (the ratio printed); then qwen3-8b decode at batch
    8 over the 32768-slot cache, step time against memory_s, printed
    beside the llm phase's step_bytes bound. No kernel of K1-K7 launches.
-18. sharded (last) — the partitioned LLM step: (a) qwen3-8b at full
-   width, cut to 1 layer, float32, batch 8, through the DTensor path
+18. sharded (last) — the partitioned LLM step: (a) qwen3-8b (cut to 1
+   layer), rwkv6-3b (1 layer) and recurrentgemma-2b (3 layers: one
+   (rglru, rglru, attn) superblock) at full width, float32, batch 8,
+   each through the DTensor path
    (parameters, AdamW state, batch and cache distributed on a (1, 1)
    DeviceMesh over the card's NCCL group of world size 1) and the plain
    path from the same weights: one train step (loss, grad norm and every
@@ -159,11 +162,12 @@ non-zero:
    1e-4, tokens equal), whether each is bit-equal, and each path's ms a
    step (train: the median of 2 steps after the held one; decode: of
    the 4, after an untimed one); (b) the dry run's partitioned counts
-   of qwen3-8b, deepseek-v3-671b and arctic-480b at train_4k, prefill_32k and
+   of qwen3-8b, deepseek-v3-671b, arctic-480b, rwkv6-3b and
+   recurrentgemma-2b at train_4k, prefill_32k and
    decode_32k on 16x16 and 2x16x16 (meta tensors over a fake process
    group, started after (a), when every timed phase is done: the cells
-   of each mesh in SHARDED_GROUPS' four processes, eight together,
-   joined before the phase ends): per-device
+   of each mesh in SHARDED_GROUPS' five processes, ten together,
+   joined before the phase ends), each cell's seconds: per-device
    collective bytes by kind, collective_total, flops_per_device, the
    roofline's collective_s and dominant, each non-null, and
    flops_per_device x n_devices at least the dryrun phase's unsharded
@@ -318,33 +322,44 @@ TRAIN_FLAT_GRAD = 1e-3  # |g| <= this * max |g|: Adam's sign may flip there
 # (~2.0 B parameters, 20 GB of weights and AdamW state) at launch/train's
 # batch 8 x seq 128, and its decode at batch 8 over decode_32k's 32768-slot cache at
 # full depth (16 GB of weights, 39 GB of cache)
-DRYRUN_COUNTED = ("qwen3-8b", "deepseek-v3-671b", "arctic-480b")
+DRYRUN_COUNTED = ("qwen3-8b", "deepseek-v3-671b", "arctic-480b", "rwkv6-3b",
+                  "recurrentgemma-2b")
 DRYRUN_TRAIN = dict(arch="qwen3-8b", shape="train_4k", layers=4, batch=8,
                     seq=128)
 DRYRUN_DECODE = dict(arch="qwen3-8b", shape="decode_32k", batch=8)
 
-# the sharded phase: (a) the partitioned (DTensor) step of qwen3-8b at full
-# width, cut to SHARDED_LAYERS, float32, on a (1, 1) DeviceMesh over the
-# card's NCCL group of world size 1, against the plain step on the same
-# card: one train step at batch 8 x seq SHARDED_SEQ, SHARDED_DECODE decode
-# steps over SHARDED_SLOTS cache slots; (b) the dry run's partitioned counts
-# of SHARDED_COUNTED at SHARDED_SHAPES on both production meshes (a fake
-# process group), after (a): no timed phase runs beside them
-SHARDED_ARCH, SHARDED_LAYERS, SHARDED_BATCH = "qwen3-8b", 1, 8
-SHARDED_SEQ, SHARDED_DECODE, SHARDED_SLOTS = 128, 4, 64
+# the sharded phase: (a) the partitioned (DTensor) step of each of
+# SHARDED_STEPS at full width, cut in depth, float32, on a (1, 1) DeviceMesh
+# over the card's NCCL group of world size 1, against the plain step on the
+# same card: one train step at batch 8 x seq SHARDED_SEQ, SHARDED_DECODE
+# decode steps over SHARDED_SLOTS cache slots; (b) the dry run's
+# partitioned counts of SHARDED_COUNTED at SHARDED_SHAPES on both
+# production meshes (a fake process group), after (a): no timed phase runs
+# beside them
+SHARDED_STEPS = (
+    ("qwen3-8b", 1, ["n_layers 36 -> 1, float32: the plain and DTensor "
+                     "steps and their AdamW states side by side on one "
+                     "card"]),
+    ("rwkv6-3b", 1, ["n_layers 32 -> 1, float32: as qwen3-8b's"]),
+    ("recurrentgemma-2b", 3, ["n_layers 26 -> 3: one (rglru, rglru, attn) "
+                              "superblock, so both kinds of layer run; "
+                              "float32: as qwen3-8b's"]),
+)
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_DECODE, SHARDED_SLOTS = 8, 128, 4, 64
 SHARDED_TIMED = 2       # train steps timed after the held one
-SHARDED_REDUCED = ["n_layers 36 -> 1, float32: the plain and DTensor steps "
-                   "and their AdamW states side by side on one card"]
 SHARDED_COUNTED = DRYRUN_COUNTED
 SHARDED_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
-# (b)'s processes: each group of cells on each mesh in one, 8 together (the
+# (b)'s processes: each group of cells on each mesh in one, 10 together (the
 # card's host has 8 cores); a group's steps take 16-21 s on meta tensors,
-# deepseek-v3's three 39-40 s (one process a mesh, on the H100's host)
+# deepseek-v3's three 39-40 s (one process a mesh, on the H100's host), the
+# two recurrent stacks' six 24-26 s
 SHARDED_GROUPS = (
     tuple(("qwen3-8b", s) for s in SHARDED_SHAPES),
     tuple(("arctic-480b", s) for s in SHARDED_SHAPES),
     (("deepseek-v3-671b", "train_4k"),),
     (("deepseek-v3-671b", "prefill_32k"), ("deepseek-v3-671b", "decode_32k")),
+    tuple((a, s) for a in ("rwkv6-3b", "recurrentgemma-2b")
+          for s in SHARDED_SHAPES),
 )
 
 # the figs phase: the paper's figure drivers (repro_torch.benchmarks) and the
@@ -1583,30 +1598,16 @@ class PartitionedCounts:
             r.stop()
 
 
-def sharded_phase(torch, dev, card, unsharded, smoke=False):
-    """The partitioned LLM step. (a) SHARDED_ARCH at full width cut to
-    SHARDED_LAYERS in float32 on `dev`: its train step and SHARDED_DECODE
-    decode steps through the DTensor path (parameters, AdamW state,
-    batch and cache distributed on a (1, 1) DeviceMesh over a process
-    group of world size 1: NCCL for the card) and through the plain path,
-    from the same weights; loss, grad norm, every updated parameter and
-    each decode step's logits within LLM_CHECK_TOL of the plain step's
-    largest value, greedy tokens equal; whether they are bit-equal, and
-    each path's ms a step. (b) SHARDED_GROUPS' counts on both meshes, in
-    processes of their own started after (a) (PartitionedCounts): per-device
-    collective bytes by kind, collective_total, flops_per_device, the
-    roofline's collective_s and dominant for each cell, each non-null,
-    flops_per_device x n_devices >= the unsharded matmul_flops (from
-    `unsharded`: the dryrun phase's records, (arch, shape) -> matmul_flops).
-    --smoke (the CPU rehearsal) runs (a) on the smoke config and a gloo
-    group."""
+def sharded_step_check(torch, dev, card, mesh, arch, layers, reduced,
+                       smoke):
+    """(a) of the sharded phase for one arch: its config at full width cut
+    to `layers` (the smoke config under --smoke) in float32 on `dev`, its
+    train step and SHARDED_DECODE decode steps through the DTensor path
+    on `mesh` and through the plain path from the same weights, held to
+    each other; prints the comparison and returns its row."""
     import dataclasses
-    import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLMDataset, shard_batch
-    from repro_torch.launch import dryrun, roofline
-    from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.launch.specs import build_cell
     from repro_torch.models import model as M
     from repro_torch.sharding.rules import serving_rules
     from repro_torch.train import optim
@@ -1631,11 +1632,146 @@ def sharded_phase(torch, dev, card, unsharded, smoke=False):
         bound = LLM_CHECK_TOL * max(b.abs().max().item(), 1e-30)
         worst = err.max().item() if err.numel() else 0.0
         if not worst <= bound:
-            raise AssertionError(f"sharded: {what}: |DTensor - plain| "
-                                 f"{worst} > {bound}")
+            raise AssertionError(f"sharded: {arch}: {what}: |DTensor - "
+                                 f"plain| {worst} > {bound}")
         return worst
 
     t_a = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch, smoke=smoke), n_layers=layers,
+                              dtype="float32")
+    params = M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    host_batch = SyntheticLMDataset(cfg, SHARDED_BATCH,
+                                    SHARDED_SEQ).batch_at(0)
+    step = M.make_train_step(cfg, mesh)
+    res, ms = {}, {}
+    # plain first, then DTensor, each from its own copy of the weights: the
+    # first step is held, then SHARDED_TIMED more are timed (the first of a
+    # path pays its warm-up)
+    for path in ("plain", "dtensor"):
+        p = M.tree_map(torch.clone, params)
+        if path == "dtensor":
+            p = M.distribute_params(p, cfg, mesh)
+            batch = shard_batch(host_batch, mesh, torch.float32)
+        else:
+            batch = shard_batch(host_batch, dev, torch.float32)
+        opt = optim.adamw_init(p)
+        times = []
+        for i in range(1 + SHARDED_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            p, opt, metrics = step(p, opt, batch)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                res[path] = (M.tree_map(torch.clone, p), metrics,
+                             M.tree_map(torch.clone, opt["m"]))
+        ms[path + " train"] = statistics.median(times[1:])
+        del p, opt, batch
+        free()
+    (pp, pm, p_m), (dp, dm, _) = res["plain"], res["dtensor"]
+    for t in (pp, dp):
+        if not all(torch.isfinite(whole(x)).all()
+                   for _, x in M.tree_items(t)):
+            raise AssertionError(f"sharded: {arch}: a non-finite parameter")
+    errs = {k: held(k, dm[k], pm[k]) for k in ("loss", "grad_norm")}
+    # Adam's first step moves an element by ~lr * sign(g): where the
+    # gradient is flat its sign may flip, so the parameters are held where
+    # |g| > TRAIN_FLAT_GRAD * max |g| (m = (1 - b1) g after one step), as
+    # the train phase's card-against-CPU check
+    dtree, worst_p = dict(M.tree_items(dp)), 0.0
+    for path, t in M.tree_items(pp):
+        g = dict(M.tree_items(p_m))[path].abs()
+        worst_p = max(worst_p, held("/".join(path), dtree[path], t,
+                                    g > TRAIN_FLAT_GRAD * g.max()))
+    bit_train = all(torch.equal(whole(dtree[k]), t)
+                    for k, t in M.tree_items(pp)) and all(
+        torch.equal(whole(dm[k]), pm[k]) for k in ("loss", "grad_norm"))
+    del res, pp, dp, pm, dm, p_m, dtree
+    free()
+
+    # decode: SHARDED_DECODE greedy steps from the same first tokens
+    rules = serving_rules()
+    tok0 = torch.from_numpy(host_batch["tokens"][:, 0].copy()).to(dev)
+    logits, tokens = {}, {}
+    for path in ("plain", "dtensor"):
+        cache = M.init_cache(cfg, SHARDED_BATCH, SHARDED_SLOTS, dev)
+        p, tok = params, tok0
+        if path == "dtensor":
+            p = M.distribute_params(params, cfg, mesh, rules)
+            cache = M.distribute_cache(cache, cfg, mesh, SHARDED_BATCH,
+                                       SHARDED_SLOTS, rules)
+            tok = shard_batch({"t": tok0.cpu().numpy()}, mesh)["t"]
+        logits[path], tokens[path], times = [], [], []
+        with torch.no_grad():
+            # one untimed step at the last slot warms the path up
+            M.decode_forward(p, cfg, cache, tok, SHARDED_SLOTS - 1, mesh)
+            for i in range(SHARDED_DECODE):
+                sync()
+                t0 = time.perf_counter()
+                lg, cache = M.decode_forward(p, cfg, cache, tok, i, mesh)
+                tok = torch.argmax(lg, dim=-1).to(torch.int32)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+                logits[path].append(whole(lg))
+                tokens[path].append(whole(tok))
+        ms[path + " decode"] = statistics.median(times)
+        del cache
+        free()
+    worst_l = max(held(f"decode step {i}", a, b) for i, (a, b) in
+                  enumerate(zip(logits["dtensor"], logits["plain"])))
+    if not all(torch.equal(a, b) for a, b in zip(tokens["dtensor"],
+                                                 tokens["plain"])):
+        raise AssertionError(f"sharded: {arch}: greedy tokens differ")
+    bit_decode = all(torch.equal(a, b) for a, b in
+                     zip(logits["dtensor"], logits["plain"]))
+    row = {"arch": arch, "config": cfg.name,
+           "reduced": [] if smoke else reduced,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "batch": SHARDED_BATCH, "seq": SHARDED_SEQ,
+           "decode_steps": SHARDED_DECODE, "slots": SHARDED_SLOTS,
+           "timed_train_steps": SHARDED_TIMED,
+           "mesh": "(1, 1) DeviceMesh, world size 1",
+           "max_err": dict(errs, params=worst_p, logits=worst_l),
+           "bit_equal_train": bit_train, "bit_equal_decode": bit_decode,
+           "ms": ms, "card": card}
+    print(f"sharded: {cfg.name} at n_layers {cfg.n_layers}, float32, "
+          f"batch {SHARDED_BATCH}: the DTensor step on a (1, 1) "
+          f"DeviceMesh against the plain step on the same card: loss "
+          f"err {errs['loss']:.3e}, grad norm {errs['grad_norm']:.3e}, "
+          f"parameters {worst_p:.3e}, {SHARDED_DECODE} decode steps' "
+          f"logits {worst_l:.3e} (bound {LLM_CHECK_TOL} of the "
+          f"largest), tokens equal; bit-equal: train {bit_train}, "
+          f"decode {bit_decode}; ms a step, plain / DTensor: train "
+          f"{ms['plain train']:.3f} / {ms['dtensor train']:.3f}, decode "
+          f"{ms['plain decode']:.3f} / {ms['dtensor decode']:.3f} "
+          f"({time.perf_counter() - t_a:.1f} s) [{card}]", flush=True)
+    return row
+
+
+def sharded_phase(torch, dev, card, unsharded, smoke=False):
+    """The partitioned LLM step. (a) each of SHARDED_STEPS at full width
+    cut in depth, in float32 on `dev` (sharded_step_check): its train step
+    and SHARDED_DECODE decode steps through the DTensor path (parameters,
+    AdamW state, batch and cache distributed on a (1, 1) DeviceMesh over a
+    process group of world size 1: NCCL for the card) and through the
+    plain path, from the same weights; loss, grad norm, every updated
+    parameter and each decode step's logits within LLM_CHECK_TOL of the
+    plain step's largest value, greedy tokens equal; whether they are
+    bit-equal, and each path's ms a step. (b) SHARDED_GROUPS' counts on
+    both meshes, in processes of their own started after (a)
+    (PartitionedCounts): per-device collective bytes by kind,
+    collective_total, flops_per_device, the roofline's collective_s and
+    dominant for each cell, each non-null, flops_per_device x n_devices
+    >= the unsharded matmul_flops (from `unsharded`: the dryrun phase's
+    records, (arch, shape) -> matmul_flops), and each cell's seconds.
+    --smoke (the CPU rehearsal) runs (a) on the smoke configs and a gloo
+    group."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.specs import build_cell
+
     mesh_mod.STORE_DIR.mkdir(parents=True, exist_ok=True)
     dist.init_process_group(
         "cpu:gloo,cuda:nccl" if dev.type == "cuda" else "gloo",
@@ -1643,119 +1779,15 @@ def sharded_phase(torch, dev, card, unsharded, smoke=False):
         world_size=1, rank=0)
     try:
         mesh = mesh_mod.make_host_mesh(device=dev)
-        cfg = dataclasses.replace(get_config(SHARDED_ARCH, smoke=smoke),
-                                  n_layers=SHARDED_LAYERS, dtype="float32")
-        params = M.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(0), dev)
-        host_batch = SyntheticLMDataset(cfg, SHARDED_BATCH,
-                                        SHARDED_SEQ).batch_at(0)
-        step = M.make_train_step(cfg, mesh)
-        res, ms = {}, {}
-        # plain first, then DTensor, each from its own copy of the
-        # weights: the first step is held, then SHARDED_TIMED more are
-        # timed (the first of a path pays its warm-up)
-        for path in ("plain", "dtensor"):
-            p = M.tree_map(torch.clone, params)
-            if path == "dtensor":
-                p = M.distribute_params(p, cfg, mesh)
-                batch = shard_batch(host_batch, mesh, torch.float32)
-            else:
-                batch = shard_batch(host_batch, dev, torch.float32)
-            opt = optim.adamw_init(p)
-            times = []
-            for i in range(1 + SHARDED_TIMED):
-                sync()
-                t0 = time.perf_counter()
-                p, opt, metrics = step(p, opt, batch)
-                sync()
-                times.append((time.perf_counter() - t0) * 1e3)
-                if i == 0:
-                    res[path] = (M.tree_map(torch.clone, p), metrics,
-                                 M.tree_map(torch.clone, opt["m"]))
-            ms[path + " train"] = statistics.median(times[1:])
-            del p, opt, batch
-            free()
-        (pp, pm, p_m), (dp, dm, _) = res["plain"], res["dtensor"]
-        for t in (pp, dp):
-            if not all(torch.isfinite(whole(x)).all()
-                       for _, x in M.tree_items(t)):
-                raise AssertionError("sharded: a non-finite parameter")
-        errs = {k: held(k, dm[k], pm[k]) for k in ("loss", "grad_norm")}
-        # Adam's first step moves an element by ~lr * sign(g): where the
-        # gradient is flat its sign may flip, so the parameters are held
-        # where |g| > TRAIN_FLAT_GRAD * max |g| (m = (1 - b1) g after one
-        # step), as the train phase's card-against-CPU check
-        dtree, worst_p = dict(M.tree_items(dp)), 0.0
-        for path, t in M.tree_items(pp):
-            g = dict(M.tree_items(p_m))[path].abs()
-            worst_p = max(worst_p, held("/".join(path), dtree[path], t,
-                                        g > TRAIN_FLAT_GRAD * g.max()))
-        bit_train = all(torch.equal(whole(dtree[k]), t)
-                        for k, t in M.tree_items(pp)) and all(
-            torch.equal(whole(dm[k]), pm[k]) for k in ("loss", "grad_norm"))
-        del res, pp, dp, pm, dm, p_m, dtree
-        free()
-
-        # decode: SHARDED_DECODE greedy steps from the same first tokens
-        rules = serving_rules()
-        tok0 = torch.from_numpy(host_batch["tokens"][:, 0].copy()).to(dev)
-        logits, tokens = {}, {}
-        for path in ("plain", "dtensor"):
-            cache = M.init_cache(cfg, SHARDED_BATCH, SHARDED_SLOTS, dev)
-            p, tok = params, tok0
-            if path == "dtensor":
-                p = M.distribute_params(params, cfg, mesh, rules)
-                cache = M.distribute_cache(cache, cfg, mesh, SHARDED_BATCH,
-                                           SHARDED_SLOTS, rules)
-                tok = shard_batch({"t": tok0.cpu().numpy()}, mesh)["t"]
-            logits[path], tokens[path], times = [], [], []
-            with torch.no_grad():
-                # one untimed step at the last slot warms the path up
-                M.decode_forward(p, cfg, cache, tok, SHARDED_SLOTS - 1, mesh)
-                for i in range(SHARDED_DECODE):
-                    sync()
-                    t0 = time.perf_counter()
-                    lg, cache = M.decode_forward(p, cfg, cache, tok, i, mesh)
-                    tok = torch.argmax(lg, dim=-1).to(torch.int32)
-                    sync()
-                    times.append((time.perf_counter() - t0) * 1e3)
-                    logits[path].append(whole(lg))
-                    tokens[path].append(whole(tok))
-            ms[path + " decode"] = statistics.median(times)
-            del cache
-            free()
-        worst_l = max(held(f"decode step {i}", a, b) for i, (a, b) in
-                      enumerate(zip(logits["dtensor"], logits["plain"])))
-        if not all(torch.equal(a, b) for a, b in zip(tokens["dtensor"],
-                                                     tokens["plain"])):
-            raise AssertionError("sharded: greedy tokens differ")
-        bit_decode = all(torch.equal(a, b) for a, b in
-                         zip(logits["dtensor"], logits["plain"]))
-        row = {"arch": SHARDED_ARCH, "config": cfg.name,
-               "reduced": [] if smoke else SHARDED_REDUCED,
-               "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-               "batch": SHARDED_BATCH, "seq": SHARDED_SEQ,
-               "decode_steps": SHARDED_DECODE, "slots": SHARDED_SLOTS,
-               "timed_train_steps": SHARDED_TIMED,
-               "mesh": "(1, 1) DeviceMesh, world size 1",
-               "max_err": dict(errs, params=worst_p, logits=worst_l),
-               "bit_equal_train": bit_train, "bit_equal_decode": bit_decode,
-               "ms": ms, "card": card}
-        print(f"sharded: {cfg.name} at n_layers {cfg.n_layers}, float32, "
-              f"batch {SHARDED_BATCH}: the DTensor step on a (1, 1) "
-              f"DeviceMesh against the plain step on the same card: loss "
-              f"err {errs['loss']:.3e}, grad norm {errs['grad_norm']:.3e}, "
-              f"parameters {worst_p:.3e}, {SHARDED_DECODE} decode steps' "
-              f"logits {worst_l:.3e} (bound {LLM_CHECK_TOL} of the "
-              f"largest), tokens equal; bit-equal: train {bit_train}, "
-              f"decode {bit_decode}; ms a step, plain / DTensor: train "
-              f"{ms['plain train']:.3f} / {ms['dtensor train']:.3f}, decode "
-              f"{ms['plain decode']:.3f} / {ms['dtensor decode']:.3f} "
-              f"({time.perf_counter() - t_a:.1f} s) [{card}]", flush=True)
-        print("sharded step " + json.dumps(row), flush=True)
+        for arch, layers, reduced in SHARDED_STEPS:
+            row = sharded_step_check(torch, dev, card, mesh, arch, layers,
+                                     reduced, smoke)
+            print("sharded step " + json.dumps(row), flush=True)
     finally:
         dist.destroy_process_group()
-        free()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
     # (b) the partitioned counts, each group of cells in a process of its own
     cells = [c for g in SHARDED_GROUPS for c in g]

@@ -33,9 +33,13 @@ own: the fake group must be the default one) under `StepCounter`:
   local blocks (FlopCounterMode's formulas), forward, backward and
   recompute as `matmul_flops`.
 
-rwkv6-3b, recurrentgemma-2b and llama-3.2-vision-90b have no partitioned
-step yet (`queued`, `models.model.has_partitioned_step`): their
-per-device fields stay null with that reason.
+llama-3.2-vision-90b (the cross-attention-period stack) has no
+partitioned step yet (`queued`, `models.model.has_partitioned_step`): its
+per-device fields stay null with that reason. The recurrent stacks'
+time loops (rwkv6-3b, recurrentgemma-2b) run on meta tensors as one step
+batched over T, which counts what the T steps count
+(`models.recurrent`), so their counts take seconds, not the 2090-2769 s
+of a loop over T.
 
 The reference lowers and compiles each cell; the port has no compiler,
 so the fields that come from one (memory and cost analysis but the
@@ -88,14 +92,16 @@ ABSENT = {
 }
 PARTITIONED = ("flops_per_device", "collective_bytes", "collective_total")
 PARTITIONER = "dtensor"
-QUEUED_REASON = ("queued: no partitioned step for this arch yet (its "
-                 "time or chunk loops take 930-2769 s on meta tensors "
-                 "unsharded; ROADMAP §1)")
+QUEUED_REASON = ("queued: no partitioned step for the cross-attention-"
+                 "period stack (llama-3.2-vision-90b) yet: its 1601 image "
+                 "tokens run as 1601 one-token chunks, 930 s a count on "
+                 "meta tensors unsharded; ROADMAP §1")
 
 
 def queued(arch: str) -> bool:
-    """An arch whose steps are Python loops on meta tensors (930-2769 s a
-    count unsharded) and that has no partitioned step yet."""
+    """An arch with no partitioned step yet: the cross-attention-period
+    stack (llama-3.2-vision-90b), whose chunk loop takes 930 s a count
+    on meta tensors unsharded."""
     return not has_partitioned_step(get_config(arch))
 
 

@@ -35,9 +35,11 @@ Terms per cell on the 16x16 production mesh, in one H100 SXM's peaks
 non-null ones where an arch's partitioned step is queued).
 `flops` is matmul_flops plus the recurrence work FlopCounterMode does not
 see: RG-LRU's scan is elementwise, so the reference's analytic correction
-is added for it; RWKV6's state update goes through einsums the counter
-already counts, so nothing is added (its elementwise decay is not counted,
-as no elementwise work is).
+is added for it (once: to the unsharded count, and over the devices to
+the partitioned one, whose island counts only matmuls, so none of the
+scan); RWKV6's state update goes through einsums the counter already
+counts, so nothing is added (its elementwise decay is not counted, as no
+elementwise work is).
 
 `--measure` runs one real step of a cut cell (--layers, --batch, --seq) on
 one device (CUDA unless --device cpu) and prints the median step time

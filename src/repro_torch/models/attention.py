@@ -61,10 +61,6 @@ def _seq_positions(b: int, s: int, device):
 # head layout of the partitioned step
 # ---------------------------------------------------------------------------
 
-def _model_size(dm) -> int:
-    return sd.axis_size(dm, "model") if "model" in sd.axis_names(dm) else 1
-
-
 def _kv_slice(dm, h: int, hkv: int, h_local: int) -> Tuple[int, int]:
     """The KV heads the query heads of this rank read, where the query
     heads split over `model` and the KV heads do not: global query head
@@ -86,7 +82,7 @@ def _attend_island(q, k, v, norms, cfg: ArchConfig, fn):
     k and v (B, Hkv, Skv, dh) as they came in."""
     dm = q.device_mesh
     b, h, hkv = q.shape[0], q.shape[2], k.shape[2]
-    m = _model_size(dm)
+    m = sd.model_size(dm)
     bs = sd.batch_entry(dm, b)
     hs = "model" if m > 1 and h % m == 0 else None
     kvs = "model" if hs and hkv % m == 0 else None
@@ -334,7 +330,7 @@ def _mla_island(q, kv, kv_norm, wkv_b, cfg: ArchConfig):
     wkv_b's heads as q's. -> (o (B,S,H*dv), latent (B,S,kvl+dr))."""
     dm = q.device_mesh
     b, h = q.shape[0], q.shape[2]
-    m = _model_size(dm)
+    m = sd.model_size(dm)
     bs = sd.batch_entry(dm, b)
     hs = "model" if m > 1 and h % m == 0 else None
     ws, ms = tuple(bs or ()), (("model",) if hs else ())
@@ -378,7 +374,7 @@ def _mla_decode_island(q, kv, kv_norm, wkv_b, latent_cache,
     spec = sd.spec_of(latent_cache)
     bs = spec[0]
     seq_split = sd.splits(spec[1], "model")
-    m, h = _model_size(dm), q.shape[2]
+    m, h = sd.model_size(dm), q.shape[2]
     hs = "model" if not seq_split and m > 1 and h % m == 0 else None
 
     def local(ql, kvl_, kn, wb, lc):

@@ -22,12 +22,14 @@ SPMD partitioner lays them out. Here the same functions run on DTensors:
 shard_batch` the batch, and DTensor's sharding propagation lays out the
 rest; the products with a weight, the embedding, the cross entropy
 (`sharding.dtensor`), the attention blocks (`models.attention`) and the
-MoE layer (`_moe_island`) run in islands on each rank's block. The
-DTensor path is taken when the parameters are DTensors: on a mesh of
-more than one rank they must be; on a mesh of one rank (launch/serve and
-launch/train run on one) plain tensors keep the plain path, and a caller
-that distributes its parameters asks for the DTensor path explicitly.
-rwkv6, recurrentgemma and llama-3.2-vision have no partitioned step yet.
+MoE layer (`_moe_island`), the recurrent mixers' time loops
+(`models.recurrent`) and the ring-buffer local-attention decode
+(`_ring_island`) run in islands on each rank's block. The DTensor path is
+taken when the parameters are DTensors: on a mesh of more than one rank
+they must be; on a mesh of one rank (launch/serve and launch/train run
+on one) plain tensors keep the plain path, and a caller that distributes
+its parameters asks for the DTensor path explicitly. llama-3.2-vision
+(the cross-attention-period stack) has no partitioned step yet.
 """
 from __future__ import annotations
 
@@ -599,7 +601,7 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
             h = h + o
             o, xl2 = rec.rwkv_channel_mix(
                 rmsnorm(h, bp["ln2"], cfg.norm_eps), bp["channel_mix"], cfg)
-            return h + o, (st, xl, xl2)
+            return _batch_constraint(h + o, mesh), (st, xl, xl2)
 
         x, states = _scan(_remat(rwkv_block), x, params["blocks"])
         if collect_cache:
@@ -622,7 +624,7 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
                 h, st = _remat(lambda hh, bp, kind=kind: one_layer(
                     hh, bp, kind))(h, sbp[f"l{i}_{kind}"])
                 sts.append(st)
-            return h, tuple(sts)
+            return _batch_constraint(h, mesh), tuple(sts)
 
         x, states = _scan(superblock, x, params["superblocks"])
         tail_states = []
@@ -675,9 +677,9 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
 
 
 def has_partitioned_step(cfg: ArchConfig) -> bool:
-    """Whether the DTensor path covers `cfg`'s stack: not yet rwkv, rglru
-    or cross-attention-period stacks (queued, ROADMAP §1)."""
-    return not (cfg.rwkv or cfg.rglru or cfg.xattn_period)
+    """Whether the DTensor path covers `cfg`'s stack: not yet the
+    cross-attention-period stack (queued, ROADMAP §1)."""
+    return not cfg.xattn_period
 
 
 def _partitioned(params, cfg: ArchConfig, mesh) -> bool:
@@ -688,8 +690,8 @@ def _partitioned(params, cfg: ArchConfig, mesh) -> bool:
     if sd.is_dtensor(params["embed"]):
         if not has_partitioned_step(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: no partitioned step for rwkv, rglru or "
-                f"cross-attention-period stacks yet (queued, ROADMAP §1)")
+                f"{cfg.name}: no partitioned step for the cross-attention-"
+                f"period stack yet (queued, ROADMAP §1)")
         return True
     ranks = 1 if mesh is None else math.prod(mesh.shape.values())
     if ranks != 1:
@@ -903,36 +905,93 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, device):
 def _ring_local_decode(x, bp, cfg, k_cache, v_cache, kv_pos, pos):
     """Sliding-window decode with a ring-buffer cache (window-sized),
     updated in place. As in the reference, slots never written hold
-    position 0 and count as valid (ROADMAP §3, F5)."""
-    b = x.shape[0]
-    h, hkv, dh = cfg.n_heads, max(cfg.n_kv_heads, 1), cfg.resolved_head_dim
+    position 0 and count as valid (ROADMAP §3, F5). On DTensors the
+    attention is `_ring_island`."""
     hn = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
     p = bp["attn"]
-    q = torch.einsum("bsd,dhk->bshk", hn, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", hn, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", hn, p["wv"])
-    positions = torch.full((b, 1), int(pos), dtype=torch.int32,
-                           device=x.device)
+    q = sd.mm("bsd,dhk->bshk", hn, p["wq"])
+    k = sd.mm("bsd,dhk->bshk", hn, p["wk"])
+    v = sd.mm("bsd,dhk->bshk", hn, p["wv"])
+    if sd.is_dtensor(k_cache):
+        o = _ring_island(q, k, v, k_cache, v_cache, kv_pos, cfg, int(pos))
+    else:
+        o = _ring_attend(q, k, v, k_cache, v_cache, kv_pos, cfg, int(pos),
+                         k_cache.shape[2])
+    x = x + sd.mm("bse,ed->bsd", o, p["wo"])
+    return _mlp(x, bp, cfg), k_cache, v_cache, kv_pos
+
+
+def _ring_attend(q, k, v, k_cache, v_cache, kv_pos, cfg, pos: int,
+                 window: int, off: int = 0, dm=None):
+    """RoPE at `pos`, the new k, v written in place at slot pos % window
+    where this block of the ring's slots (from global slot `off`) holds
+    it, kv_pos[slot] = pos, and attention over the block's slots: q
+    (B, 1, H, dh), k, v (B, 1, Hkv, dh), caches (B, Hkv, S_l, dh), kv_pos
+    (window,) whole -> (B, 1, H * dh). With `dm`, the softmax over the
+    slots of every rank along `model` (the ring's slots split over it)."""
+    b, _, h, dh = q.shape
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=q.device)
     cos, sin = rope_angles(positions, dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin).transpose(1, 2)
     k = apply_rope(k, cos, sin).transpose(1, 2)
     v = v.transpose(1, 2)
-    window = k_cache.shape[2]
-    slot = int(pos) % window
-    k_cache[:, :, slot] = k[:, :, 0]
-    v_cache[:, :, slot] = v[:, :, 0]
-    kv_pos[slot] = int(pos)
-    g, hg = hkv, h // hkv
-    qg = q.reshape(b, g, hg, 1, dh)
+    s_l = k_cache.shape[2]
+    slot = pos % window
+    if off <= slot < off + s_l:
+        k_cache[:, :, slot - off] = k[:, :, 0]
+        v_cache[:, :, slot - off] = v[:, :, 0]
+    kv_pos[slot] = pos
+    g = k_cache.shape[1]
+    qg = q.reshape(b, g, h // g, 1, dh)
     s = torch.einsum("bghqd,bgkd->bghqk", qg, k_cache).to(F32)
     s = s / math.sqrt(dh)
-    valid = (kv_pos <= pos) & (pos - kv_pos < window) & (kv_pos >= 0)
+    kp = kv_pos[off:off + s_l]
+    valid = (kp <= pos) & (pos - kp < window) & (kp >= 0)
     s = torch.where(valid, s, -1e30)
-    pattn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bghqk,bgkd->bghqd", pattn.to(v_cache.dtype), v_cache)
-    o = o.reshape(b, h, 1, dh).transpose(1, 2).reshape(b, 1, h * dh)
-    x = x + torch.einsum("bse,ed->bsd", o, p["wo"])
-    return _mlp(x, bp, cfg), k_cache, v_cache, kv_pos
+    if dm is None:
+        pattn = torch.softmax(s, dim=-1)
+        o = torch.einsum("bghqk,bgkd->bghqd", pattn.to(v_cache.dtype),
+                         v_cache)
+    else:
+        o = attn._combine_decode(dm, s, v_cache, True)
+    return o.reshape(b, h, 1, dh).transpose(1, 2).reshape(b, 1, h * dh)
+
+
+def _ring_island(q, k, v, k_cache, v_cache, kv_pos, cfg, pos: int):
+    """_ring_attend on each rank's block of the ring (B, Hkv, window, dh)
+    in its own layout (the serving rules': batch over the data axes; its
+    KV heads, or else its slots, over `model`), kv_pos (window,) whole on
+    every rank. Where the slots split over more than one rank, each
+    attends with every head over its own slots and the softmax is
+    reduced over `model` (as attention's `_decode_island`); the rank
+    holding the slot writes the new k, v. -> o (B, 1, H * dh)."""
+    dm = q.device_mesh
+    spec = sd.spec_of(k_cache)
+    bs = spec[0]
+    kvs = "model" if sd.splits(spec[1], "model") else None
+    seq_split = sd.splits(spec[2], "model")
+    window = k_cache.shape[2]
+    combine = seq_split and sd.model_size(dm) > 1
+
+    def local(ql, kl, vl, kc, vc, kp):
+        off = attn._seq_owner(dm, seq_split, kc.shape[2])
+        return _ring_attend(ql, kl, vl, kc, vc, kp, cfg, pos, window, off,
+                            dm if combine else None)
+
+    head_pl = sd.pl(dm, (bs, None, kvs, None))
+    return sd.island(
+        local, dm, (q, k, v, k_cache, v_cache, kv_pos),
+        (head_pl, head_pl, head_pl, tuple(k_cache.placements),
+         tuple(v_cache.placements), tuple(kv_pos.placements)),
+        (sd.pl(dm, (bs, None, kvs)),))
+
+
+def _write(dst, src):
+    """dst (a cache leaf or a view of one) := src, in place; on DTensors
+    src is laid out as dst first."""
+    if sd.is_dtensor(dst):
+        src = sd.constrain(src, tuple(dst.placements))
+    dst.copy_(src)
 
 
 def _rglru_layer(x, bp, cfg, conv_st, lru_st):
@@ -1017,9 +1076,9 @@ def decode_forward(params, cfg: ArchConfig, cache, tokens, pos, mesh=None):
                 rmsnorm(x, bp["ln2"], cfg.norm_eps), bp["channel_mix"], cfg,
                 x_last=cache["x_cm"][i])
             x = x + o
-            cache["wkv"][i] = st
-            cache["x_tm"][i] = x_tm
-            cache["x_cm"][i] = x_cm
+            _write(cache["wkv"][i], st)
+            _write(cache["x_tm"][i], x_tm)
+            _write(cache["x_cm"][i], x_cm)
 
     elif cfg.rglru:
         pat = cfg.block_pattern or ("rglru", "rglru", "attn")
@@ -1032,8 +1091,8 @@ def decode_forward(params, cfg: ArchConfig, cache, tokens, pos, mesh=None):
                     x, conv, lru = _rglru_layer(
                         x, bp, cfg, cache[f"conv_{i}"][j],
                         cache[f"lru_{i}"][j])
-                    cache[f"conv_{i}"][j] = conv
-                    cache[f"lru_{i}"][j] = lru
+                    _write(cache[f"conv_{i}"][j], conv)
+                    _write(cache[f"lru_{i}"][j], lru)
                 else:
                     x = _ring_local_decode(
                         x, bp, cfg, cache[f"k_{i}"][j], cache[f"v_{i}"][j],
@@ -1043,8 +1102,8 @@ def decode_forward(params, cfg: ArchConfig, cache, tokens, pos, mesh=None):
             if pat[i] == "rglru":
                 x, conv, lru = _rglru_layer(x, bp, cfg, cache[f"tconv_{i}"],
                                             cache[f"tlru_{i}"])
-                cache[f"tconv_{i}"].copy_(conv)
-                cache[f"tlru_{i}"].copy_(lru)
+                _write(cache[f"tconv_{i}"], conv)
+                _write(cache[f"tlru_{i}"], lru)
             else:
                 x = _ring_local_decode(
                     x, bp, cfg, cache[f"tk_{i}"], cache[f"tv_{i}"],
@@ -1072,7 +1131,7 @@ def decode_forward(params, cfg: ArchConfig, cache, tokens, pos, mesh=None):
 def make_serve_step(cfg: ArchConfig, mesh=None):
     def serve_step(params, cache, tokens, pos):
         logits, cache = decode_forward(params, cfg, cache, tokens, pos, mesh)
-        next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_tokens = sd.argmax(logits).to(torch.int32)
         return next_tokens, cache
     return serve_step
 

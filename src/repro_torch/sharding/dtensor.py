@@ -65,6 +65,11 @@ def axis_size(dm, axis: str) -> int:
     return dm.size(axis_names(dm).index(axis))
 
 
+def model_size(dm) -> int:
+    """The size of the `model` axis of a DeviceMesh (1 where it has none)."""
+    return axis_size(dm, "model") if "model" in axis_names(dm) else 1
+
+
 def axis_index(dm, axis: str) -> int:
     """This rank's coordinate along `axis`."""
     return dm.get_local_rank(axis)
@@ -276,6 +281,34 @@ def embedding(tokens, table):
     return constrain(y, pl(dm, out_spec)) if vs else y
 
 
+def argmax(logits):
+    """torch.argmax(logits, dim=-1). On DTensors whose last dim (the
+    vocab) splits over `model`, an island: each rank's best value, its
+    max over `model`, and the least global index of a rank whose best is
+    that max (torch.argmax's first maximum: the blocks lie in vocab
+    order), both reduced over `model`. DTensor's own argmax (torch 2.13)
+    fails where a rank's batch block is one row."""
+    if not is_dtensor(logits) or model_split(logits) != logits.dim() - 1:
+        return torch.argmax(logits, dim=-1)
+    dm = logits.device_mesh
+    spec = spec_of(logits)
+
+    def local(lg):
+        idx = torch.argmax(lg, dim=-1)
+        best = torch.gather(lg, -1, idx[..., None])[..., 0]
+        top = all_max(best, dm, "model")
+        idx = torch.where(best == top,
+                          idx + axis_index(dm, "model") * lg.shape[-1],
+                          logits.shape[-1])
+        if model_size(dm) > 1:
+            dist.all_reduce(idx, op=dist.ReduceOp.MIN,
+                            group=dm.get_group("model"))
+        return idx
+
+    return island(local, dm, (logits,), (pl(dm, spec),),
+                  (pl(dm, spec[:-1]),))
+
+
 def cross_entropy(logits, labels, plain: Callable):
     """The mean over every token of logsumexp(logits) - the label's logit
     (`plain` computes it on plain tensors). On DTensors, an island over
@@ -315,7 +348,7 @@ def cross_entropy(logits, labels, plain: Callable):
                   (pl(dm, (), tuple(bs or ())),))
 
 
-__all__ = ["all_max", "axis_index", "axis_size", "batch_entry",
+__all__ = ["all_max", "argmax", "axis_index", "axis_size", "batch_entry",
            "constrain", "cross_entropy", "distribute", "dp_axes",
-           "embedding", "is_dtensor", "island", "mm", "model_split", "pl",
-           "psum", "scale_grad", "spec_of", "splits"]
+           "embedding", "is_dtensor", "island", "mm", "model_size",
+           "model_split", "pl", "psum", "scale_grad", "spec_of", "splits"]

@@ -9,13 +9,16 @@ float32 with tests/_sharded_inputs.py's weights and batch, every step
 under jax.jit with the specs' NamedShardings on the (data 2, model 4)
 mesh: forward and loss_fn, one make_train_step step, the prefill step
 and DECODE_STEPS greedy decode steps under the serving rules from a
-cache whose first HISTORY slots are drawn; also loss_fn's gradients. And
-the prefill step of the config cut to one layer of each kind (the HLO
-text holds a scanned layer's body once): its compiled HLO's collective
-bytes per device by kind (repro.launch.dryrun. collective_bytes) and,
-for an MoE arch, those of the all-to-alls of the MoE shard_map's (E / 4,
-capacity, D) buffers. Writes OUT_DIR/<arch>.npz (host values: a
-replicated output is device 0's) and prints JAX_SHARDED_OK.
+cache whose first `history` slots are drawn; also loss_fn's gradients.
+And the prefill step of the config cut to one layer of each kind (the
+HLO text holds a scanned layer's body once): its compiled HLO's
+collective bytes per device by kind (repro.launch.dryrun.
+collective_bytes) and, for an MoE arch, those of the all-to-alls of the
+MoE shard_map's (E / 4, capacity, D) buffers. For an RG-LRU stack also
+`_ring_local_decode` of its first superblock's attention layer over
+RING_STEPS positions of a zero ring whose slot positions start at 0 and
+at -1 (F5). Writes OUT_DIR/<arch>.npz (host values: a replicated output
+is device 0's) and prints JAX_SHARDED_OK.
 """
 import dataclasses
 import json
@@ -65,8 +68,34 @@ def unflatten(schema, values):
 
 def cut_config(cfg):
     """`cfg` cut to one layer of each kind (one dense layer; an MoE arch's
-    leading dense layers and one MoE layer)."""
+    leading dense layers and one MoE layer; an RG-LRU stack's superblock
+    and a tail layer)."""
+    if cfg.rglru:
+        pattern = cfg.block_pattern or ("rglru", "rglru", "attn")
+        return dataclasses.replace(cfg, n_layers=len(pattern) + 1)
     return dataclasses.replace(cfg, n_layers=cfg.first_k_dense + 1)
+
+
+def ring_runs(cfg, params):
+    """The ring-decode (F5) outputs: _ring_local_decode of the first
+    superblock's attention layer over RING_STEPS positions of a zero ring
+    of S_MAX slots whose positions start at `init` (0 and -1)."""
+    layer = jax.tree.map(lambda a: a[0], params["superblocks"])
+    i = (cfg.block_pattern or ("rglru", "rglru", "attn")).index("attn")
+    bp = layer[f"l{i}_attn"]
+    ring = jax.jit(M._ring_local_decode, static_argnums=2)
+    shape = (si.B, max(cfg.n_kv_heads, 1), si.S_MAX, cfg.resolved_head_dim)
+    out = {}
+    for init in (0, -1):
+        kc = vc = jnp.zeros(shape, jnp.float32)
+        kp = jnp.full((si.S_MAX,), init, jnp.int32)
+        for pos, x in enumerate(si.draw_ring(cfg.d_model)):
+            o, kc, vc, kp = ring(jnp.asarray(x), bp, cfg, kc, vc, kp,
+                                 jnp.int32(pos))
+            out[f"ring/{init}/out/{pos}"] = o
+        out.update({f"ring/{init}/k": kc, f"ring/{init}/v": vc,
+                    f"ring/{init}/pos": kp})
+    return out
 
 
 def cut_prefill_counts(cfg, mesh, pbatch, bspec):
@@ -148,8 +177,9 @@ def run(arch, out_dir):
         rules = serving_rules()
         dspecs = M.param_specs(cfg, mesh, rules)
         cschema = M.cache_schema(cfg, si.B, si.S_MAX)
+        first = si.history(cfg.rglru)
         cvals = si.draw_cache([(p, ps.shape, ps.logical)
-                               for p, ps in schema_leaves(cschema)])
+                               for p, ps in schema_leaves(cschema)], first)
         cspecs = M.cache_specs(cfg, mesh, si.B, si.S_MAX, rules)
         cache = jax.device_put(unflatten(cschema, cvals), cspecs)
         tspec = NamedSharding(mesh, P("data"))
@@ -160,11 +190,13 @@ def run(arch, out_dir):
         tok = jnp.asarray(si.first_tokens(cfg.vocab))
         for i in range(si.DECODE_STEPS):
             lg, cache = decode(params, cache, tok,
-                               jnp.int32(si.HISTORY + i))
+                               jnp.int32(first + i))
             tok = jnp.argmax(lg, axis=-1).astype(jnp.int32)
             out[f"decode_logits/{i}"] = lg
             out[f"decode_tokens/{i}"] = tok
         out.update(flat(cache, "decode_cache"))
+    if cfg.rglru:
+        out.update(ring_runs(cfg, params))
     out = {k: np.asarray(v) for k, v in out.items()}
     out["prefill_collective_bytes"] = np.array(json.dumps(coll))
     np.savez(os.path.join(out_dir, f"{arch}.npz"), **out)

@@ -15,8 +15,18 @@ B, S = 4, 32                   # train and prefill batch
 S_MAX, HISTORY, DECODE_STEPS = 16, 6, 4   # decode: cache slots, filled
 # slots, steps (positions HISTORY .. HISTORY + DECODE_STEPS - 1: across
 # the blocks of two ranks where the cache's sequence splits over model)
+# a ring-buffer (local-attention) cache of min(window, S_MAX) = 16 slots is
+# filled to RING_HISTORY: positions 14..17 cross the ring's wrap
+RING_HISTORY = 14
+RING_STEPS = 6                 # the ring-decode test's positions 0..5
 LR = 3e-4                      # make_train_step's default
 SEED = 26
+
+
+def history(ring):
+    """The decode's filled slots (its first position): RING_HISTORY for a
+    stack with a ring-buffer cache (`ring`: the config's rglru)."""
+    return RING_HISTORY if ring else HISTORY
 
 
 def draw_params(leaves):
@@ -46,20 +56,25 @@ def draw_batch(vocab, d_model, enc_dec):
     return out
 
 
-def draw_cache(leaves):
+def draw_cache(leaves, filled):
     """leaves: [(path, shape, logical axes)] of the decode cache at batch
-    B and S_MAX slots -> {path: array}: every slot before HISTORY of a
-    leaf with a "seq" axis drawn (the rest 0); the encoder memory whole."""
+    B and S_MAX slots -> {path: array}: every slot before `filled` of a
+    leaf with a "seq" axis drawn (the rest 0); the encoder memory whole;
+    a ring's slot positions (`pos_*`, `tpos_*`, int32) the slot's index
+    before `filled`, 0 after."""
     rng = np.random.default_rng(SEED + 2)
     out = {}
     for path, shape, logical in leaves:
         a = np.zeros(shape, np.float32)
-        if path[-1] == "memory":
+        if path[-1].startswith(("pos", "tpos")):
+            a = np.zeros(shape, np.int32)
+            a[..., :filled] = np.arange(filled)
+        elif path[-1] == "memory":
             a[...] = rng.normal(size=shape)
         elif "seq" in logical:
             ax = logical.index("seq")
             idx = [slice(None)] * len(shape)
-            idx[ax] = slice(0, HISTORY)
+            idx[ax] = slice(0, filled)
             a[tuple(idx)] = rng.normal(size=a[tuple(idx)].shape)
         out[path] = a
     return out
@@ -68,3 +83,10 @@ def draw_cache(leaves):
 def first_tokens(vocab):
     return np.random.default_rng(SEED + 3).integers(0, vocab, B).astype(
         np.int32)
+
+
+def draw_ring(d_model):
+    """The ring-decode test's inputs, (RING_STEPS, B, 1, d_model): one
+    decode step's activations a position."""
+    rng = np.random.default_rng(SEED + 4)
+    return rng.normal(size=(RING_STEPS, B, 1, d_model)).astype(np.float32)

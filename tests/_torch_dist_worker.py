@@ -38,7 +38,11 @@ Scenarios:
   tensors, a device-less mesh of one rank) under "plain/...", and counts
   the collectives of the prefill step cut to one MoE layer (MoE archs)
   under "count/..." (by kind) and "count_op/..." (by op), and those of
-  one decode step under "count_decode_op/...".
+  one decode step under "count_decode_op/...". For an RG-LRU stack also
+  `_ring_local_decode` of its first superblock's attention layer on
+  DTensors (the ring laid out as the serving rules lay out its cache)
+  over RING_STEPS positions of a zero ring whose slot positions start
+  at 0 and at -1 (F5), under "ring/...".
 """
 import os
 import sys
@@ -302,7 +306,8 @@ def sharded_setup(arch):
                               [torch.from_numpy(drawn[p]) for p, _ in schema])
     batch = si.draw_batch(cfg.vocab, cfg.d_model, cfg.enc_dec)
     cschema = list(M.tree_items(M.cache_schema(cfg, si.B, si.S_MAX)))
-    cdrawn = si.draw_cache([(p, ps.shape, ps.logical) for p, ps in cschema])
+    cdrawn = si.draw_cache([(p, ps.shape, ps.logical) for p, ps in cschema],
+                           si.history(cfg.rglru))
     cache = M.tree_unflatten([p for p, _ in cschema],
                              [torch.from_numpy(cdrawn[p]) for p, _ in cschema])
     return cfg, params, batch, cache
@@ -342,8 +347,9 @@ def sharded_steps(cfg, params, batch, cache, mesh, put, put_params,
         c = put_cache(M.tree_map(torch.clone, cache), rules)
         tok = put({"t": si.first_tokens(cfg.vocab)})["t"]
         serve = M.make_serve_step(cfg, mesh)
+        first = si.history(cfg.rglru)
         for i in range(si.DECODE_STEPS):
-            lg, c = M.decode_forward(dp, cfg, c, tok, si.HISTORY + i, mesh)
+            lg, c = M.decode_forward(dp, cfg, c, tok, first + i, mesh)
             out[f"decode_logits/{i}"] = lg
             tok = torch.argmax(lg, dim=-1).to(torch.int32)
             out[f"decode_tokens/{i}"] = tok
@@ -351,9 +357,43 @@ def sharded_steps(cfg, params, batch, cache, mesh, put, put_params,
         # serve_step is decode_forward and the argmax: one more step
         nt, _ = serve(dp, put_cache(M.tree_map(torch.clone, cache), rules),
                       put({"t": si.first_tokens(cfg.vocab)})["t"],
-                      si.HISTORY)
+                      first)
         out["serve_tokens"] = nt
     return {k: gather(v) for k, v in out.items()}
+
+
+def ring_runs(cfg, params, mesh):
+    """_ring_local_decode of the first superblock's attention layer, its
+    weights, activations and ring laid out on `mesh` under the serving
+    rules, over RING_STEPS positions of a zero ring of S_MAX slots whose
+    positions start at 0 and at -1; each output gathered whole."""
+    import _sharded_inputs as si
+    from repro_torch.models import model as M
+    from repro_torch.sharding.dtensor import distribute
+    from repro_torch.sharding.rules import serving_rules
+    rules = serving_rules()
+    i = (cfg.block_pattern or ("rglru", "rglru", "attn")).index("attn")
+    dp = M.distribute_params(M.tree_map(torch.clone, params), cfg, mesh,
+                             rules)
+    bp = M._layer(dp["superblocks"], 0)[f"l{i}_attn"]
+    specs = M.cache_specs(cfg, mesh, si.B, si.S_MAX, rules)
+    shape = (si.B, max(cfg.n_kv_heads, 1), si.S_MAX, cfg.resolved_head_dim)
+    out = {}
+    with torch.no_grad():
+        for init in (0, -1):
+            kc, vc = (distribute(torch.zeros(shape), mesh,
+                                 specs[f"k_{i}"][1:]) for _ in range(2))
+            kp = distribute(torch.full((si.S_MAX,), init, dtype=torch.int32),
+                            mesh, specs[f"pos_{i}"][1:])
+            for pos, x in enumerate(si.draw_ring(cfg.d_model)):
+                xd = distribute(torch.from_numpy(x), mesh,
+                                (("data",), None, None))
+                o, kc, vc, kp = M._ring_local_decode(xd, bp, cfg, kc, vc, kp,
+                                                     pos)
+                out[f"ring/{init}/out/{pos}"] = o
+            out.update({f"ring/{init}/k": kc, f"ring/{init}/v": vc,
+                        f"ring/{init}/pos": kp})
+    return {k: v.full_tensor().numpy() for k, v in out.items()}
 
 
 def scenario_sharded(arch, data, model):
@@ -407,6 +447,8 @@ def scenario_sharded(arch, data, model):
             M.decode_forward(dp, cfg, c, tok, si.HISTORY, mesh)
         out.update({f"count_decode_op/{k}": np.array(v)
                     for k, v in cnt.bytes_by_op.items()})
+    if cfg.rglru:
+        out.update(ring_runs(cfg, params, mesh))
     if dist.get_rank() == 0:
         one = abstract_mesh((1, 1), ("data", "model"))
         plain = sharded_steps(

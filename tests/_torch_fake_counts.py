@@ -17,10 +17,14 @@ be the process's default group).
   its prefill step and of its train step, and its parameters' local
   shapes, for tests/test_torch_sharded_dryrun.py's count by hand.
 * ``smoke`` — the prefill step of the smoke configs of
-  tests/_sharded_inputs.py's ARCHS in float32, cut to one layer of each
-  kind as tests/_jax_sharded_step.py cuts them, at its batch on its
-  (2, 4) mesh of 8 fake ranks: the collective bytes per device by kind,
-  beside which PERF.md sets the reference's HLO count of the same cell.
+  tests/_sharded_inputs.py's ARCHS and of RECURRENT in float32, cut to
+  one layer of each kind as tests/_jax_sharded_step.py cuts them, at its
+  batch on its (2, 4) mesh of 8 fake ranks: the collective bytes per
+  device by kind, beside which PERF.md sets the reference's HLO count of
+  the same cell. For RECURRENT also StepCounter's collective bytes and
+  FLOPs of the train, prefill and decode steps of the whole smoke config
+  on meta tensors (each time loop one step batched over T) and on real
+  CPU tensors (the loop over T), under "loop_counts".
 """
 import dataclasses
 import json
@@ -35,6 +39,7 @@ import torch  # noqa: E402
 TOY = dict(name="toy", family="dense", n_layers=2, d_model=16, d_ff=32,
            vocab=32, n_heads=4, n_kv_heads=4, head_dim=4, dtype="float32")
 TOY_BATCH, TOY_SEQ = 4, 8
+RECURRENT = ("rwkv6-3b", "recurrentgemma-2b")
 
 
 def _leaves(tree, specs, prefix=""):
@@ -108,6 +113,64 @@ def toy():
     return out
 
 
+def _cut(cfg):
+    """tests/_jax_sharded_step.py's cut_config."""
+    if cfg.rglru:
+        pattern = cfg.block_pattern or ("rglru", "rglru", "attn")
+        return dataclasses.replace(cfg, n_layers=len(pattern) + 1)
+    return dataclasses.replace(cfg, n_layers=cfg.first_k_dense + 1)
+
+
+def _step_counts(cfg, device):
+    """StepCounter's (collective bytes by kind, FLOPs) of the train,
+    prefill and decode steps of `cfg` at tests/_sharded_inputs.py's sizes
+    on a (2, 4) mesh of the fake group: on meta DTensors, or on real ones
+    (zero tokens and cache, weights from a seeded generator) on the CPU."""
+    import _sharded_inputs as si
+    from repro_torch.launch.dryrun import StepCounter
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding.dtensor import distribute
+    from repro_torch.sharding.rules import serving_rules
+    from repro_torch.train import optim
+    meta = device.type == "meta"
+    mesh = Mesh(si.MESH, ("data", "model"), device, device_type="cpu")
+    rules = serving_rules()
+
+    def params(r=None):
+        if meta:
+            return M.abstract_params(cfg, mesh, r)
+        return M.distribute_params(M.init_params(
+            cfg, torch.Generator().manual_seed(0), device), cfg, mesh, r)
+
+    def tokens(*shape):
+        return distribute(torch.zeros(shape, dtype=torch.int32,
+                                      device=device), mesh,
+                          (("data",),) + (None,) * (len(shape) - 1))
+
+    cache = (M.abstract_cache(cfg, si.B, si.S_MAX, mesh, rules) if meta
+             else M.distribute_cache(M.init_cache(cfg, si.B, si.S_MAX,
+                                                  device),
+                                     cfg, mesh, si.B, si.S_MAX, rules))
+    p = params()
+    steps = {
+        "train": lambda: M.make_train_step(cfg, mesh)(
+            p, optim.abstract_adamw_state(p) if meta else optim.adamw_init(p),
+            {"tokens": tokens(si.B, si.S), "labels": tokens(si.B, si.S)}),
+        "prefill": lambda: M.make_prefill_step(cfg, mesh)(
+            params(), {"tokens": tokens(si.B, si.S)}),
+        "decode": lambda: M.make_serve_step(cfg, mesh)(
+            params(rules), cache, tokens(si.B), si.S_MAX - 1)}
+    out = {}
+    for name, step in steps.items():
+        with torch.no_grad() if name != "train" else torch.enable_grad(), \
+                StepCounter() as c:
+            step()
+        out[name] = {"collective_bytes": c.collective_bytes,
+                     "flops": c.flops}
+    return out
+
+
 def smoke():
     import _sharded_inputs as si
     from repro_torch.compat import fake_process_group
@@ -116,14 +179,13 @@ def smoke():
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import model as M
     from repro_torch.sharding.dtensor import distribute
-    out = {}
+    out = {"loop_counts": {}}
     with fake_process_group(si.MESH[0] * si.MESH[1]):
         mesh = Mesh(si.MESH, ("data", "model"), torch.device("meta"),
                     device_type="cuda")
-        for arch in si.ARCHS:
-            cfg = get_config(arch, smoke=True)
-            cfg = dataclasses.replace(cfg, dtype="float32",
-                                      n_layers=cfg.first_k_dense + 1)
+        for arch in si.ARCHS + RECURRENT:
+            cfg = _cut(dataclasses.replace(get_config(arch, smoke=True),
+                                           dtype="float32"))
             params = M.abstract_params(cfg, mesh)
             tokens = distribute(torch.empty(si.B, si.S, dtype=torch.int32,
                                             device="meta"), mesh,
@@ -131,6 +193,12 @@ def smoke():
             with StepCounter() as c:
                 M.make_prefill_step(cfg, mesh)(params, {"tokens": tokens})
             out[arch] = c.collective_bytes
+        for arch in RECURRENT:
+            cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                      dtype="float32")
+            out["loop_counts"][arch] = {
+                kind: _step_counts(cfg, torch.device(dev))
+                for kind, dev in (("fold", "meta"), ("loop", "cpu"))}
     return out
 
 

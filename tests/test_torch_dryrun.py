@@ -20,8 +20,9 @@ state) against the JAX package's, on the CPU.
   sharding.rules.shard_shape and the reference's NamedSharding.shard_shape.
 * Records: the partitioned step's per-device fields (flops_per_device,
   collective_bytes, collective_total) filled, the compiler's fields null,
-  each with its reason; a queued arch's per-device fields null with
-  theirs; --measure's one-card collective_s 0.
+  each with its reason; recurrentgemma-2b's roofline adds the RG-LRU
+  correction once, to the unsharded FLOPs and over the devices to a
+  partitioned count; --measure's one-card collective_s 0.
 """
 import dataclasses
 import importlib
@@ -270,17 +271,28 @@ def test_decode_count_does_not_depend_on_pos():
 
 
 def test_roofline_record_recurrence():
-    rec = roofline.run_cell("recurrentgemma-2b", "decode_32k")
+    """The RG-LRU scan's correction, added to the unsharded FLOPs and,
+    over the 256 devices, to the partitioned count (here a stub: the
+    16x16 count runs in a process of its own; the island's count holds no
+    recurrence FLOPs, test_torch_sharded_recurrent.py)."""
+    part = {"flops_per_device": 3.0e9, "collective_total": 5.0e8,
+            "collective_bytes": {"all-gather": 4.9e8, "all-reduce": 1.0e7}}
+    rec = roofline.run_cell("recurrentgemma-2b", "decode_32k",
+                            partition=part)
     assert rec["status"] == "ok", rec.get("tb")
     assert rec["recurrence_added_flops"] == \
         roofline.recurrence_correction("recurrentgemma-2b",
                                        "decode_32k") * 256
     assert rec["flops"] == rec["matmul_flops"] + rec["recurrence_added_flops"]
-    # a queued arch: no partitioned step, so no collective term
-    assert rec["collective_s"] is None and rec["flops_per_device"] is None
-    assert rec["absent"]["collective_s"] == dryrun.QUEUED_REASON
-    assert rec["dominant"] == "memory_s"
-    assert rec["compute_s"] == rec["flops"] / (256 * roofline.PEAK_FLOPS)
+    # partitioned: the collective term and the per-device compute term
+    assert rec["collective_s"] is not None
+    assert rec["flops_per_device"] is not None and not rec["absent"]
+    assert rec["flops_per_device"] == \
+        part["flops_per_device"] + rec["recurrence_added_flops"] / 256
+    assert rec["collective_s"] == part["collective_total"] / roofline.LINK_BW
+    assert rec["compute_s"] == rec["flops_per_device"] / roofline.PEAK_FLOPS
+    terms = {k: rec[k] for k in ("compute_s", "memory_s", "collective_s")}
+    assert rec["dominant"] == max(terms, key=terms.get)
     assert rec["memory_s"] == (rec["argument_bytes"] + rec["output_bytes"]) \
         / roofline.HBM_BW
     assert rec["k12_gap"] == (rec["matmul_flops_k12"] - rec["matmul_flops"]) \

@@ -21,10 +21,11 @@ CPU.
     weight split over `data`.
 * Records: qwen3-8b decode_32k's roofline on 16x16 carries the
   collective term (collective_total over one 400 Gb/s port) and the
-  per-device compute term; a queued arch's dry-run record carries null
-  per-device fields with the reason, without its step being run, and so
-  do both spellings of llama-3.2-vision-90b's dry-run and roofline
-  records (queued by its config, not by its name).
+  per-device compute term; the queued arch's (llama-3.2-vision-90b, the
+  cross-attention-period stack) dry-run record carries null per-device
+  fields with the reason, without its step being run, and so do both
+  spellings of its dry-run and roofline records (queued by its config,
+  not by its name).
 """
 import json
 import os
@@ -102,9 +103,10 @@ def test_queued_arch_record_null_with_reason(monkeypatch):
         raise AssertionError("a queued arch's step was run")
     monkeypatch.setattr(dryrun, "count_partitioned", refuse)
     monkeypatch.setattr(dryrun, "count_matmul_flops", refuse)
-    parts = dryrun.partitioned_counts([("rwkv6-3b", "train_4k")], False)
+    arch = "llama-3.2-vision-90b"
+    parts = dryrun.partitioned_counts([(arch, "train_4k")], False)
     assert parts == {}
-    rec = dryrun.run_cell("rwkv6-3b", "train_4k", False, count=False,
+    rec = dryrun.run_cell(arch, "train_4k", False, count=False,
                           partition=parts)
     assert rec["status"] == "ok" and rec["partitioner"] == "dtensor"
     for k in dryrun.PARTITIONED:
