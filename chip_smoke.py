@@ -138,7 +138,8 @@ non-zero:
    of them long_500k skips), each cell's status, per-device GiB and,
    for DRYRUN_COUNTED's architectures, matmul TFLOPs (FlopCounterMode
    over the whole step on meta tensors, rwkv6's and recurrentgemma's time
-   loops one step batched over T; the CLI counts the others); any
+   loops one step batched over T, llama-3.2-vision's image cross
+   attention one chunk of its 1601 tokens; the CLI counts the others); any
    `error`, or an `ok` cell whose per-device argument bytes pass 80 GiB
    on 16x16 without its record saying so, fails the phase. Then the
    roofline checked against real steps on the card (launch/roofline
@@ -161,10 +162,18 @@ non-zero:
    plain step's largest value) and 4 greedy decode steps (logits within
    1e-4, tokens equal), whether each is bit-equal, and each path's ms a
    step (train: the median of 2 steps after the held one; decode: of
-   the 4, after an untimed one); (b) the dry run's partitioned counts
-   of qwen3-8b, deepseek-v3-671b, arctic-480b, rwkv6-3b and
-   recurrentgemma-2b at train_4k, prefill_32k and
-   decode_32k on 16x16 and 2x16x16 (meta tensors over a fake process
+   the 4, after an untimed one); then llama-3.2-vision-90b (5 layers: one
+   superblock of 4 self-attention layers and 1 cross-attention layer
+   over 1601 image tokens, 6.38 B parameters) at full width, float32,
+   batch 8 x 16, whose AdamW step does not fit the card: the plain path, then
+   the DTensor path, one after the other (the plain path's results on
+   the host in between), each with 4 decode steps over the batch's
+   images and loss_fn's loss and gradients, held leaf by leaf within
+   1e-4, tokens equal, each path's ms for forward + backward and a
+   decode step and its peak memory; (b) the dry run's partitioned counts
+   of qwen3-8b, deepseek-v3-671b, arctic-480b, rwkv6-3b,
+   recurrentgemma-2b and llama-3.2-vision-90b at train_4k, prefill_32k
+   and decode_32k on 16x16 and 2x16x16 (meta tensors over a fake process
    group, started after (a), when every timed phase is done: the cells
    of each mesh in SHARDED_GROUPS' five processes, ten together,
    joined before the phase ends), each cell's seconds: per-device
@@ -322,8 +331,11 @@ TRAIN_FLAT_GRAD = 1e-3  # |g| <= this * max |g|: Adam's sign may flip there
 # (~2.0 B parameters, 20 GB of weights and AdamW state) at launch/train's
 # batch 8 x seq 128, and its decode at batch 8 over decode_32k's 32768-slot cache at
 # full depth (16 GB of weights, 39 GB of cache)
+# llama-3.2-vision-90b in the dry run's (dashed) spelling, which its
+# records and counts carry
+VISION = "llama-3-2-vision-90b"
 DRYRUN_COUNTED = ("qwen3-8b", "deepseek-v3-671b", "arctic-480b", "rwkv6-3b",
-                  "recurrentgemma-2b")
+                  "recurrentgemma-2b", VISION)
 DRYRUN_TRAIN = dict(arch="qwen3-8b", shape="train_4k", layers=4, batch=8,
                     seq=128)
 DRYRUN_DECODE = dict(arch="qwen3-8b", shape="decode_32k", batch=8)
@@ -344,22 +356,47 @@ SHARDED_STEPS = (
     ("recurrentgemma-2b", 3, ["n_layers 26 -> 3: one (rglru, rglru, attn) "
                               "superblock, so both kinds of layer run; "
                               "float32: as qwen3-8b's"]),
+    (VISION, 5, [
+        "n_layers 100 -> 5: one superblock (4 self-attention layers and 1 "
+        "cross-attention layer over 1601 image tokens), 6.38 B parameters",
+        "seq 128 -> 16: F6's 1601 one-token chunks keep two (8, 64, seq, "
+        "128) float32 tensors a chunk for the backward, 107 GB at seq 128 "
+        "and 13.4 GB at 16",
+        "float32, loss and gradients only, no AdamW update: an AdamW step "
+        "keeps ~20 bytes a parameter (p, g, m, v, the clipped g), ~128 GB "
+        "at 6.38 B; AdamW on DTensors is the same code for every arch and "
+        "runs here for qwen3-8b, rwkv6-3b and recurrentgemma-2b",
+        "the plain path, then the DTensor path, one after the other: the "
+        "plain path's loss, gradients and decode logits go to the host "
+        "before the DTensor path starts (~51 GB of weights and gradients "
+        "on the card at a time)"]),
 )
+# SHARDED_STEPS' archs held on loss and gradients (sharded_grads_check), not
+# on an AdamW step, at batch SHARDED_BATCH x SHARDED_GRADS_SEQ
+SHARDED_GRADS_ONLY = (VISION,)
 SHARDED_BATCH, SHARDED_SEQ, SHARDED_DECODE, SHARDED_SLOTS = 8, 128, 4, 64
+SHARDED_GRADS_SEQ = 16
 SHARDED_TIMED = 2       # train steps timed after the held one
 SHARDED_COUNTED = DRYRUN_COUNTED
 SHARDED_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 # (b)'s processes: each group of cells on each mesh in one, 10 together (the
-# card's host has 8 cores); a group's steps take 16-21 s on meta tensors,
-# deepseek-v3's three 39-40 s (one process a mesh, on the H100's host), the
-# two recurrent stacks' six 24-26 s
+# card's host has 8 cores). A cell's count took, on 16x16 on the H100's
+# host (2x16x16 within 0.1-4.3 s of it): deepseek-v3 train 25.2 s, prefill
+# 21.5, decode 7.2; llama-3.2-vision-90b 17.6, 18.7, 4.0; arctic 13.0, 9.6,
+# 3.7; qwen3-8b 11.6, 11.3, 2.7; rwkv6-3b 8.7, 2.2, 3.9; recurrentgemma-2b
+# 5.1, 3.5, 1.5; so each group holds 31-37 s of them
 SHARDED_GROUPS = (
-    tuple(("qwen3-8b", s) for s in SHARDED_SHAPES),
-    tuple(("arctic-480b", s) for s in SHARDED_SHAPES),
-    (("deepseek-v3-671b", "train_4k"),),
-    (("deepseek-v3-671b", "prefill_32k"), ("deepseek-v3-671b", "decode_32k")),
-    tuple((a, s) for a in ("rwkv6-3b", "recurrentgemma-2b")
-          for s in SHARDED_SHAPES),
+    (("deepseek-v3-671b", "train_4k"), ("rwkv6-3b", "prefill_32k"),
+     ("rwkv6-3b", "decode_32k"), ("recurrentgemma-2b", "train_4k")),
+    (("deepseek-v3-671b", "prefill_32k"), ("deepseek-v3-671b", "decode_32k"),
+     ("recurrentgemma-2b", "prefill_32k"),
+     ("recurrentgemma-2b", "decode_32k")),
+    ((VISION, "train_4k"), ("qwen3-8b", "train_4k"),
+     ("qwen3-8b", "decode_32k")),
+    ((VISION, "prefill_32k"), (VISION, "decode_32k"),
+     ("qwen3-8b", "prefill_32k")),
+    tuple(("arctic-480b", s) for s in SHARDED_SHAPES)
+    + (("rwkv6-3b", "train_4k"),),
 )
 
 # the figs phase: the paper's figure drivers (repro_torch.benchmarks) and the
@@ -1749,6 +1786,163 @@ def sharded_step_check(torch, dev, card, mesh, arch, layers, reduced,
     return row
 
 
+def sharded_grads_check(torch, dev, card, mesh, arch, layers, reduced,
+                        smoke):
+    """(a) of the sharded phase for an arch whose AdamW step does not fit
+    one card (SHARDED_GRADS_ONLY): its config at full width cut to
+    `layers` (the smoke config under --smoke) in float32 on `dev`, the
+    plain path and then the DTensor path on `mesh`, each from the same
+    seeded weights: SHARDED_DECODE greedy decode steps (the cache's images
+    the batch's), then loss_fn's loss and the gradient of every parameter
+    leaf, then SHARDED_TIMED more forward-plus-backward passes, timed. The
+    plain path's outputs go to the host and its device tensors are freed
+    before the DTensor path starts; the DTensor path's are held to them
+    leaf by leaf (within LLM_CHECK_TOL of the plain leaf's largest value,
+    the difference taken in float32 on the card: a double copy of the
+    embedding's gradient would not fit beside the weights), tokens
+    equal. Prints each path's ms and peak memory and returns the row."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, shard_batch
+    from repro_torch.models import model as M
+    from repro_torch.sharding import dtensor as sd
+    from repro_torch.sharding.rules import serving_rules
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def whole(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+
+    def held(what, a, b):
+        a, b = whole(a).to(dev), b.to(dev)
+        bound = LLM_CHECK_TOL * max(b.abs().max().item(), 1e-30)
+        worst = (a - b).abs().max().item() if b.numel() else 0.0
+        if not worst <= bound:
+            raise AssertionError(f"sharded: {arch}: {what}: |DTensor - "
+                                 f"plain| {worst} > {bound}")
+        return worst, torch.equal(a, b)
+
+    t_a = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch, smoke=smoke), n_layers=layers,
+                              dtype="float32")
+    host_batch = SyntheticLMDataset(cfg, SHARDED_BATCH,
+                                    SHARDED_GRADS_SEQ).batch_at(0)
+    tok0 = torch.from_numpy(host_batch["tokens"][:, 0].copy()).to(dev)
+    rules = serving_rules()
+    plain, ms, peak, worst, bit = {}, {}, {}, {}, {}
+    for path in ("plain", "dtensor"):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = M.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        n_params = sum(t.numel() for _, t in M.tree_items(params))
+        # decode: SHARDED_DECODE greedy steps over the batch's images
+        cache = M.init_cache(cfg, SHARDED_BATCH, SHARDED_SLOTS, dev)
+        cache["images"].copy_(torch.from_numpy(host_batch["images"]))
+        p, tok = params, tok0
+        if path == "dtensor":
+            p = M.distribute_params(params, cfg, mesh, rules)
+            cache = M.distribute_cache(cache, cfg, mesh, SHARDED_BATCH,
+                                       SHARDED_SLOTS, rules)
+            tok = shard_batch({"t": tok0.cpu().numpy()}, mesh)["t"]
+        logits, tokens, times = [], [], []
+        with torch.no_grad():
+            M.decode_forward(p, cfg, cache, tok, SHARDED_SLOTS - 1, mesh)
+            for i in range(SHARDED_DECODE):
+                sync()
+                t0 = time.perf_counter()
+                lg, cache = M.decode_forward(p, cfg, cache, tok, i, mesh)
+                tok = torch.argmax(lg, dim=-1).to(torch.int32)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+                logits.append(whole(lg).cpu())
+                tokens.append(whole(tok).cpu())
+        ms[path + " decode"] = statistics.median(times)
+        del p, cache, lg, tok
+        # loss and gradients: the held pass, then SHARDED_TIMED timed ones
+        p = params if path == "plain" else M.distribute_params(params, cfg,
+                                                                mesh)
+        batch = shard_batch(host_batch, mesh if path == "dtensor" else dev,
+                            torch.float32)
+        names = [k for k, _ in M.tree_items(p)]
+        times = []
+        for i in range(1 + SHARDED_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            leaves = [t.detach().requires_grad_() for _, t in M.tree_items(p)]
+            with torch.enable_grad():
+                loss, _ = M.loss_fn(M.tree_unflatten(names, leaves), cfg,
+                                    batch, mesh)
+                grads = torch.autograd.grad(loss, leaves)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del leaves
+            if i == 0:
+                grads = [g.redistribute(t.device_mesh, t.placements)
+                         if sd.is_dtensor(g) else g
+                         for g, (_, t) in zip(grads, M.tree_items(p))]
+                if path == "plain":
+                    plain = {"loss": loss.detach().cpu(),
+                             "grads": [g.cpu() for g in grads],
+                             "logits": logits, "tokens": tokens}
+                else:
+                    worst["loss"], bit["loss"] = held("loss", loss,
+                                                      plain["loss"])
+                    errs = [held("/".join(k), g, h) for k, g, h in
+                            zip(names, grads, plain["grads"])]
+                    worst["grads"] = max(e for e, _ in errs)
+                    bit["grads"] = all(b for _, b in errs)
+                    errs = [held(f"decode step {j}", a, b) for j, (a, b) in
+                            enumerate(zip(logits, plain["logits"]))]
+                    worst["logits"] = max(e for e, _ in errs)
+                    bit["decode"] = all(b for _, b in errs)
+                    if not all(torch.equal(a, b) for a, b in
+                               zip(tokens, plain["tokens"])):
+                        raise AssertionError(f"sharded: {arch}: greedy "
+                                             f"tokens differ")
+                    if not all(torch.isfinite(whole(g)).all() for g in grads):
+                        raise AssertionError(f"sharded: {arch}: a non-finite "
+                                             f"gradient")
+            del loss, grads
+        ms[path + " fwd+bwd"] = statistics.median(times[1:])
+        peak[path] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                      if dev.type == "cuda" else None)
+        del p, params, batch
+    del plain
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    row = {"arch": arch, "config": cfg.name,
+           "reduced": [] if smoke else reduced,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "n_params": n_params, "n_img_tokens": cfg.n_img_tokens,
+           "batch": SHARDED_BATCH, "seq": SHARDED_GRADS_SEQ,
+           "decode_steps": SHARDED_DECODE, "slots": SHARDED_SLOTS,
+           "timed_fwd_bwd": SHARDED_TIMED,
+           "mesh": "(1, 1) DeviceMesh, world size 1",
+           "max_err": worst, "bit_equal": bit, "ms": ms,
+           "peak_gib": peak, "card": card}
+    fmt = (lambda v: "n/a" if v is None else f"{v:.2f}")
+    print(f"sharded: {cfg.name} at n_layers {cfg.n_layers} ({n_params} "
+          f"parameters), float32, batch {SHARDED_BATCH} x "
+          f"{SHARDED_GRADS_SEQ}, "
+          f"{cfg.n_img_tokens} image tokens: the DTensor path on a (1, 1) "
+          f"DeviceMesh against the plain path, one after the other: loss "
+          f"err {worst['loss']:.3e}, every gradient leaf {worst['grads']:.3e}"
+          f", {SHARDED_DECODE} decode steps' logits {worst['logits']:.3e} "
+          f"(bound {LLM_CHECK_TOL} of the largest), tokens equal; "
+          f"bit-equal {bit}; ms, plain / DTensor: forward + backward "
+          f"{ms['plain fwd+bwd']:.3f} / {ms['dtensor fwd+bwd']:.3f}, decode "
+          f"step {ms['plain decode']:.3f} / {ms['dtensor decode']:.3f}; peak "
+          f"memory {fmt(peak['plain'])} / {fmt(peak['dtensor'])} GiB "
+          f"({time.perf_counter() - t_a:.1f} s) [{card}]", flush=True)
+    return row
+
+
 def sharded_phase(torch, dev, card, unsharded, smoke=False):
     """The partitioned LLM step. (a) each of SHARDED_STEPS at full width
     cut in depth, in float32 on `dev` (sharded_step_check): its train step
@@ -1780,8 +1974,9 @@ def sharded_phase(torch, dev, card, unsharded, smoke=False):
     try:
         mesh = mesh_mod.make_host_mesh(device=dev)
         for arch, layers, reduced in SHARDED_STEPS:
-            row = sharded_step_check(torch, dev, card, mesh, arch, layers,
-                                     reduced, smoke)
+            check = (sharded_grads_check if arch in SHARDED_GRADS_ONLY
+                     else sharded_step_check)
+            row = check(torch, dev, card, mesh, arch, layers, reduced, smoke)
             print("sharded step " + json.dumps(row), flush=True)
     finally:
         dist.destroy_process_group()

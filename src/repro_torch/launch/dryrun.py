@@ -33,13 +33,15 @@ own: the fake group must be the default one) under `StepCounter`:
   local blocks (FlopCounterMode's formulas), forward, backward and
   recompute as `matmul_flops`.
 
-llama-3.2-vision-90b (the cross-attention-period stack) has no
-partitioned step yet (`queued`, `models.model.has_partitioned_step`): its
-per-device fields stay null with that reason. The recurrent stacks'
-time loops (rwkv6-3b, recurrentgemma-2b) run on meta tensors as one step
-batched over T, which counts what the T steps count
-(`models.recurrent`), so their counts take seconds, not the 2090-2769 s
-of a loop over T.
+Two loops run folded on meta tensors, so every arch's counts take
+seconds. The recurrent stacks' time loops (rwkv6-3b, recurrentgemma-2b)
+run as one step batched over T, which counts what the T steps count
+(`models.recurrent`), not the 2090-2769 s of a loop over T.
+llama-3.2-vision-90b's image cross attention runs as one chunk of its
+1601 tokens, not F6's 1601 one-token chunks (930 s a train count
+unsharded): that count is the fold's, which includes the p.v product of
+each cross-attention layer and pass, 2 * B * Hq * Sq * 1601 * dh, where
+the loop's left it out (`models.layers.cross_attention`).
 
 The reference lowers and compiles each cell; the port has no compiler,
 so the fields that come from one (memory and cost analysis but the
@@ -69,10 +71,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch.compat import abstract_mesh
-from repro_torch.configs import DASHED, get_config, list_archs
+from repro_torch.configs import DASHED, list_archs
 from repro_torch.launch.mesh import fake_production_mesh, make_production_mesh
 from repro_torch.launch.specs import SHAPES, build_cell
-from repro_torch.models.model import has_partitioned_step
 from repro_torch.sharding.rules import shard_shape
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch" / \
@@ -92,18 +93,6 @@ ABSENT = {
 }
 PARTITIONED = ("flops_per_device", "collective_bytes", "collective_total")
 PARTITIONER = "dtensor"
-QUEUED_REASON = ("queued: no partitioned step for the cross-attention-"
-                 "period stack (llama-3.2-vision-90b) yet: its 1601 image "
-                 "tokens run as 1601 one-token chunks, 930 s a count on "
-                 "meta tensors unsharded; ROADMAP §1")
-
-
-def queued(arch: str) -> bool:
-    """An arch with no partitioned step yet: the cross-attention-period
-    stack (llama-3.2-vision-90b), whose chunk loop takes 930 s a count
-    on meta tensors unsharded."""
-    return not has_partitioned_step(get_config(arch))
-
 
 COUNTED = {
     "train": "forward, backward and each checkpointed block's recompute "
@@ -347,9 +336,8 @@ class PartitionedCount:
 def partitioned_counts(cells: Iterable[Tuple[str, str]], multi_pod: bool
                        ) -> Dict:
     """(arch, shape) -> count_partitioned's dict (or an error string) for
-    each cell of an arch that is not `queued`, made in a process of its
-    own."""
-    cells = [c for c in cells if not queued(c[0])]
+    each cell, made in a process of its own."""
+    cells = list(cells)
     if not cells:
         return {}
     return PartitionedCount(cells, multi_pod).result()
@@ -400,9 +388,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, count: bool = True,
         if isinstance(part, str):
             raise RuntimeError(f"partitioned count: {part}")
         if part is None:
-            why = (QUEUED_REASON if queued(arch)
-                   else "the partitioned step was not counted in this run")
-            absent.update({k: why for k in PARTITIONED})
+            absent.update({k: "the partitioned step was not counted in "
+                              "this run" for k in PARTITIONED})
         fits = arg_b <= DEVICE_MEMORY_BYTES
         rec.update(
             status="ok", kind=meta["kind"], batch=meta["batch"],

@@ -31,8 +31,7 @@ Terms per cell on the 16x16 production mesh, in one H100 SXM's peaks
     MODEL_FLOPS  = 6 * N_active * tokens (train) / 2 * N_active * tokens
     useful ratio = MODEL_FLOPS / flops
     roofline fraction = (MODEL_FLOPS / (n_devices * peak)) / max(terms)
-`dominant`, `bound_s` and the fraction cover the three terms (the
-non-null ones where an arch's partitioned step is queued).
+`dominant`, `bound_s` and the fraction cover the three terms.
 `flops` is matmul_flops plus the recurrence work FlopCounterMode does not
 see: RG-LRU's scan is elementwise, so the reference's analytic correction
 is added for it (once: to the unsharded count, and over the devices to
@@ -68,9 +67,8 @@ import torch
 from repro_torch.compat import abstract_mesh
 from repro_torch.configs import DASHED, get_config
 from repro_torch.core.context import resolve_device
-from repro_torch.launch.dryrun import (QUEUED_REASON, RESULTS_DIR,
-                                       count_matmul_flops, leaves, mesh_of,
-                                       partitioned_counts, queued,
+from repro_torch.launch.dryrun import (RESULTS_DIR, count_matmul_flops,
+                                       leaves, mesh_of, partitioned_counts,
                                        sharded_bytes)
 from repro_torch.launch.specs import SHAPES, build_cell, cell_applicable
 from repro_torch.models import model as M
@@ -222,7 +220,7 @@ def run_cell(arch: str, shape: str, k1: int = 1, k2: int = 2,
              partition=None) -> dict:
     """One cell's roofline record. `partition` is partitioned_counts'
     result for it on 16x16 (counted here, in a process of its own, when
-    not given; None for a `queued` arch)."""
+    not given)."""
     mesh = mesh_of(multi_pod=False)
     rec = {"arch": arch, "shape": shape, "mesh": "16x16",
            "n_devices": mesh.size}
@@ -245,14 +243,13 @@ def run_cell(arch: str, shape: str, k1: int = 1, k2: int = 2,
         arg_b = sharded_bytes(cell["args"], cell["in_specs"], mesh)
         out_b = (sharded_bytes(cell["outs"], cell["out_specs"], mesh)
                  if cell["outs"] is not None else None)
-        if partition is None and not queued(arch):
+        if partition is None:
             partition = partitioned_counts([(arch, shape)], False).get(
                 (arch, shape))
         if isinstance(partition, str):
             raise RuntimeError(f"partitioned count: {partition}")
-        per_dev = (partition["flops_per_device"] + added / mesh.size
-                   if partition else None)
-        coll = partition["collective_total"] if partition else None
+        per_dev = partition["flops_per_device"] + added / mesh.size
+        coll = partition["collective_total"]
         rec.update(
             status="ok", measure_s=round(time.perf_counter() - t0, 1),
             matmul_flops=full, matmul_flops_k12=k12,
@@ -262,15 +259,11 @@ def run_cell(arch: str, shape: str, k1: int = 1, k2: int = 2,
             memory_terms=["argument_bytes"] + (
                 ["output_bytes"] if out_b is not None else []),
             flops_per_device=per_dev, collective_total=coll,
-            collective_bytes=(partition["collective_bytes"] if partition
-                              else None),
+            collective_bytes=partition["collective_bytes"],
             partitioner="dtensor",
             **terms_of(flops, arg_b, out_b, mesh.size,
                        model_flops(arch, shape), per_dev, coll),
-            absent=({} if partition else
-                    {k: QUEUED_REASON for k in (
-                        "collective_s", "flops_per_device",
-                        "collective_total", "collective_bytes")}))
+            absent={})
     except Exception as e:  # noqa: BLE001
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    tb=traceback.format_exc()[-1500:])
@@ -422,8 +415,7 @@ def main(argv=None):
                 f.write(json.dumps(rec) + "\n")
                 f.flush()
                 if rec["status"] == "ok":
-                    coll = ("      null" if rec["collective_s"] is None
-                            else f"{rec['collective_s'] * 1e3:9.3f}ms")
+                    coll = f"{rec['collective_s'] * 1e3:9.3f}ms"
                     print(f"[ok] {arch:24s} {shape:12s} "
                           f"comp={rec['compute_s'] * 1e3:9.3f}ms "
                           f"mem={rec['memory_s'] * 1e3:9.3f}ms "

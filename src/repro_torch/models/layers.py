@@ -156,18 +156,30 @@ def _divisor_chunk(skv: int, target: int = 1024) -> int:
 def cross_attention(x, memory, p, cfg: ArchConfig):
     """Non-causal attention from x to `memory` (vision/audio/encoder).
     On DTensors the attention between the projections runs in
-    `attention._attend_island`."""
+    `attention._attend_island`.
+
+    On meta tensors (a count of the ops, no values: the dry run) the
+    memory runs as one chunk, not `_divisor_chunk`'s: llama-3.2-vision's
+    1601 image tokens would otherwise be 1601 Python iterations a layer
+    and pass. The two counts differ by the p.v product: a one-token
+    chunk's `bghqk,bgkd->bghqd` contracts a dim of size 1, which torch
+    runs as an elementwise multiply that FlopCounterMode does not count.
+    The fold counts it, 2 * B * Hq * Sq * Skv * dh a cross-attention
+    layer and pass (three in a train step: the forward and its two
+    backward products), so the dry run reports the work the chunks do;
+    real tensors keep F6's chunks, and so the reference's values."""
     dh = cfg.resolved_head_dim
     q = mm("bsd,dhk->bshk", x, p["wq"])
     kx = mm("bsd,dhk->bshk", memory, p["wk"])
     vx = mm("bsd,dhk->bshk", memory, p["wv"])
-    chunk = _divisor_chunk(memory.shape[1])
 
     def attend(q, k, v, norms, lcfg, sl):
         bl, sq = q.shape[:2]
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        skv = k.shape[2]
         o = flash_attention(q, k[:, sl[0]:sl[1]], v[:, sl[0]:sl[1]],
-                            causal=False, chunk=chunk)
+                            causal=False,
+                            chunk=skv if q.is_meta else _divisor_chunk(skv))
         return (o.transpose(1, 2).reshape(bl, sq, lcfg.n_heads * dh), k, v)
 
     if sd_is_dtensor(q):

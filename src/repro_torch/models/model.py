@@ -28,8 +28,9 @@ MoE layer (`_moe_island`), the recurrent mixers' time loops
 taken when the parameters are DTensors: on a mesh of more than one rank
 they must be; on a mesh of one rank (launch/serve and launch/train run
 on one) plain tensors keep the plain path, and a caller that distributes
-its parameters asks for the DTensor path explicitly. llama-3.2-vision
-(the cross-attention-period stack) has no partitioned step yet.
+its parameters asks for the DTensor path explicitly. Every stack has
+one: the cross-attention-period stack's image cross attention runs in
+`attention._attend_island` (`layers.cross_attention`).
 """
 from __future__ import annotations
 
@@ -539,7 +540,7 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
-    partitioned = _partitioned(params, cfg, mesh)
+    partitioned = _partitioned(params, mesh)
     x = sd.embedding(tokens, params["embed"]).to(dtype_of(cfg))
     x = _batch_constraint(x, mesh)
     positions = torch.arange(s, dtype=torch.int32,
@@ -587,7 +588,7 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
             h = h + swiglu(rmsnorm(h, cb["mlp_norm"], cfg.norm_eps),
                            cb["mlp"]["w_gate"], cb["mlp"]["w_up"],
                            cb["mlp"]["w_down"])
-            return h, kvs
+            return _batch_constraint(h, mesh), kvs
 
         x, kvs = _scan(superblock, x, params["superblocks"])
         if collect_cache:
@@ -676,22 +677,11 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
     return logits, mtp_logits, aux_total, (caches if collect_cache else None)
 
 
-def has_partitioned_step(cfg: ArchConfig) -> bool:
-    """Whether the DTensor path covers `cfg`'s stack: not yet the
-    cross-attention-period stack (queued, ROADMAP §1)."""
-    return not cfg.xattn_period
-
-
-def _partitioned(params, cfg: ArchConfig, mesh) -> bool:
+def _partitioned(params, mesh) -> bool:
     """True for the partitioned step (DTensor parameters). Plain
     parameters run the whole step on each rank, so they are refused on a
-    mesh of more than one rank, as a DTensor step is for a stack
-    `has_partitioned_step` does not cover."""
+    mesh of more than one rank."""
     if sd.is_dtensor(params["embed"]):
-        if not has_partitioned_step(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: no partitioned step for the cross-attention-"
-                f"period stack yet (queued, ROADMAP §1)")
         return True
     ranks = 1 if mesh is None else math.prod(mesh.shape.values())
     if ranks != 1:
@@ -1010,7 +1000,7 @@ def decode_forward(params, cfg: ArchConfig, cache, tokens, pos, mesh=None):
     MoE layers' psum (the reference passes its mesh); it may be None on
     plain tensors."""
     pos = int(pos)
-    if _partitioned(params, cfg, mesh):
+    if _partitioned(params, mesh):
         x = sd.embedding(tokens, params["embed"])[:, None, :].to(dtype_of(cfg))
     else:
         x = params["embed"][tokens][:, None, :].to(dtype_of(cfg))

@@ -1,11 +1,13 @@
 """The JAX package's partitioned LLM step on a (2, 4) mesh of 8 host
 devices, for tests/test_torch_sharded_*.py.
 
-    python tests/_jax_sharded_step.py OUT_DIR ARCH [ARCH ...]
+    python tests/_jax_sharded_step.py OUT_DIR ARCH [ARCH ...] [--img-tokens N]
 
 In a process of its own (8 placeholder host devices, as
 tests/distributed_worker.py forces). For each ARCH, the smoke config in
-float32 with tests/_sharded_inputs.py's weights and batch, every step
+float32 (with N image tokens where given: the cross-attention-period
+stack's memory length) with tests/_sharded_inputs.py's weights and
+batch, every step
 under jax.jit with the specs' NamedShardings on the (data 2, model 4)
 mesh: forward and loss_fn, one make_train_step step, the prefill step
 and DECODE_STEPS greedy decode steps under the serving rules from a
@@ -69,7 +71,9 @@ def unflatten(schema, values):
 def cut_config(cfg):
     """`cfg` cut to one layer of each kind (one dense layer; an MoE arch's
     leading dense layers and one MoE layer; an RG-LRU stack's superblock
-    and a tail layer)."""
+    and a tail layer; a cross-attention-period stack's superblock)."""
+    if cfg.xattn_period:
+        return dataclasses.replace(cfg, n_layers=cfg.xattn_period + 1)
     if cfg.rglru:
         pattern = cfg.block_pattern or ("rglru", "rglru", "attn")
         return dataclasses.replace(cfg, n_layers=len(pattern) + 1)
@@ -126,14 +130,17 @@ def cut_prefill_counts(cfg, mesh, pbatch, bspec):
             "cut_moe_all_to_all": np.array(moe)}
 
 
-def run(arch, out_dir):
+def run(arch, out_dir, img_tokens=None):
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    if img_tokens:
+        cfg = dataclasses.replace(cfg, n_img_tokens=img_tokens)
     mesh = make_host_mesh(*si.MESH)
     schema = M.param_schema(cfg)
     params = unflatten(schema, si.draw_params(
         [(p, ps.shape, ps.scale) for p, ps in schema_leaves(schema)]))
     batch = {k: jnp.asarray(v) for k, v in si.draw_batch(
-        cfg.vocab, cfg.d_model, cfg.enc_dec).items()}
+        cfg.vocab, cfg.d_model, cfg.enc_dec,
+        cfg.n_img_tokens if cfg.xattn_period else 0).items()}
     pspecs = M.param_specs(cfg, mesh)
     bspec = {k: NamedSharding(mesh, P("data", *([None] * (v.ndim - 1))))
              for k, v in batch.items()}
@@ -203,10 +210,15 @@ def run(arch, out_dir):
 
 
 def main(argv):
+    img_tokens = None
+    if "--img-tokens" in argv:
+        i = argv.index("--img-tokens")
+        img_tokens = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
     out_dir, archs = argv[0], argv[1:]
     assert len(jax.devices()) == 8, jax.devices()
     for arch in archs:
-        run(arch, out_dir)
+        run(arch, out_dir, img_tokens)
     print("JAX_SHARDED_OK")
 
 

@@ -47,19 +47,26 @@ def draw_params(leaves):
     return out
 
 
-def draw_batch(vocab, d_model, enc_dec):
+def draw_batch(vocab, d_model, enc_dec, n_img=0):
+    """tokens and labels (B, S), then the encoder's `frames` (B, S,
+    d_model) for an encoder-decoder, or `images` (B, n_img, d_model) for
+    a cross-attention-period stack (n_img > 0)."""
     rng = np.random.default_rng(SEED + 1)
     out = {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
            "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
     if enc_dec:
         out["frames"] = rng.normal(size=(B, S, d_model)).astype(np.float32)
+    if n_img:
+        out["images"] = rng.normal(size=(B, n_img, d_model)).astype(
+            np.float32)
     return out
 
 
 def draw_cache(leaves, filled):
     """leaves: [(path, shape, logical axes)] of the decode cache at batch
     B and S_MAX slots -> {path: array}: every slot before `filled` of a
-    leaf with a "seq" axis drawn (the rest 0); the encoder memory whole;
+    leaf with a "seq" axis drawn (the rest 0); the encoder memory and
+    the images whole;
     a ring's slot positions (`pos_*`, `tpos_*`, int32) the slot's index
     before `filled`, 0 after."""
     rng = np.random.default_rng(SEED + 2)
@@ -69,7 +76,7 @@ def draw_cache(leaves, filled):
         if path[-1].startswith(("pos", "tpos")):
             a = np.zeros(shape, np.int32)
             a[..., :filled] = np.arange(filled)
-        elif path[-1] == "memory":
+        elif path[-1] in ("memory", "images"):
             a[...] = rng.normal(size=shape)
         elif "seq" in logical:
             ax = logical.index("seq")

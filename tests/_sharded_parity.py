@@ -1,4 +1,4 @@
-"""Shared by tests/test_torch_sharded_{step,deepseek,arctic}.py: the
+"""Shared by tests/test_torch_sharded_*.py: the
 reference's partitioned step (tests/_jax_sharded_step.py, 8 host devices)
 and the port's (tests/_torch_dist_worker.py scenario ``sharded``, 8 gloo
 ranks) of one arch, run side by side in processes of their own, and
@@ -49,22 +49,24 @@ def _wait(procs, token, what):
         assert p.returncode == 0 and token in out, (what, err[-4000:])
 
 
-def run_both(arch, tmp):
-    """The reference's and the port's outputs of `arch`: (ref, port) as
-    dicts of arrays; port holds rank 0's gathered results and, under
-    "plain/", the port's unsharded step."""
+def run_both(arch, tmp, img_tokens=None):
+    """The reference's and the port's outputs of `arch` (with `img_tokens`
+    image tokens where given): (ref, port) as dicts of arrays; port holds
+    rank 0's gathered results and, under "plain/", the port's unsharded
+    step."""
     jdir, tdir = tmp / "jax", tmp / "torch"
     jdir.mkdir()
     tdir.mkdir()
     env = _env()
+    img = [str(img_tokens)] if img_tokens else []
     jax_proc = subprocess.Popen(
         [sys.executable, os.path.join(HERE, "_jax_sharded_step.py"),
-         str(jdir), arch], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+         str(jdir), arch] + (["--img-tokens"] + img if img else []),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     ranks = [subprocess.Popen(
         [sys.executable, os.path.join(HERE, "_torch_dist_worker.py"),
          "sharded", str(WORLD), str(r), str(tdir / "store"), str(tdir),
-         arch, str(si.MESH[0]), str(si.MESH[1])], env=env,
+         arch, str(si.MESH[0]), str(si.MESH[1])] + img, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(WORLD)]
     _wait(ranks, "WORKER_OK", f"{arch}: the port's ranks")

@@ -29,8 +29,9 @@ Scenarios:
   the experts; the output, the aux loss and the gradients of
   sum(out ** 2) + aux with respect to the rank's tokens, router and
   experts.
-* ``sharded ARCH DATA MODEL`` — the partitioned LLM step (DTensors on the
-  DATA x MODEL mesh) of ARCH's smoke config in float32 on
+* ``sharded ARCH DATA MODEL [IMG_TOKENS]`` — the partitioned LLM step
+  (DTensors on the DATA x MODEL mesh) of ARCH's smoke config in float32
+  (with IMG_TOKENS image tokens where given) on
   tests/_sharded_inputs.py's inputs: forward and loss_fn, one
   make_train_step step, the prefill step, DECODE_STEPS greedy decode
   steps under the serving rules, each output gathered whole
@@ -292,19 +293,23 @@ def _flat(tree, prefix):
     return {prefix: tree}
 
 
-def sharded_setup(arch):
+def sharded_setup(arch, img_tokens=None):
     """(cfg, whole params, batch, cache) as numpy-drawn trees: the smoke
-    config in float32 and tests/_sharded_inputs.py's draws."""
+    config in float32 (with `img_tokens` image tokens where given) and
+    tests/_sharded_inputs.py's draws."""
     import dataclasses
     import _sharded_inputs as si
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    if img_tokens:
+        cfg = dataclasses.replace(cfg, n_img_tokens=img_tokens)
     schema = list(M.tree_items(M.param_schema(cfg)))
     drawn = si.draw_params([(p, ps.shape, ps.scale) for p, ps in schema])
     params = M.tree_unflatten([p for p, _ in schema],
                               [torch.from_numpy(drawn[p]) for p, _ in schema])
-    batch = si.draw_batch(cfg.vocab, cfg.d_model, cfg.enc_dec)
+    batch = si.draw_batch(cfg.vocab, cfg.d_model, cfg.enc_dec,
+                          cfg.n_img_tokens if cfg.xattn_period else 0)
     cschema = list(M.tree_items(M.cache_schema(cfg, si.B, si.S_MAX)))
     cdrawn = si.draw_cache([(p, ps.shape, ps.logical) for p, ps in cschema],
                            si.history(cfg.rglru))
@@ -396,7 +401,7 @@ def ring_runs(cfg, params, mesh):
     return {k: v.full_tensor().numpy() for k, v in out.items()}
 
 
-def scenario_sharded(arch, data, model):
+def scenario_sharded(arch, data, model, img_tokens=None):
     import dataclasses
     import _sharded_inputs as si
     from repro_torch.compat import abstract_mesh
@@ -406,7 +411,7 @@ def scenario_sharded(arch, data, model):
     from repro_torch.models import model as M
     cpu = torch.device("cpu")
     mesh = Mesh((data, model), ("data", "model"), cpu)
-    cfg, params, batch, cache = sharded_setup(arch)
+    cfg, params, batch, cache = sharded_setup(arch, img_tokens)
     si_b, si_s = si.B, si.S_MAX
 
     def whole(t):
@@ -479,7 +484,8 @@ def main(argv):
         elif scenario == "moe":
             out = scenario_moe(world)
         elif scenario == "sharded":
-            out = scenario_sharded(argv[5], int(argv[6]), int(argv[7]))
+            out = scenario_sharded(argv[5], int(argv[6]), int(argv[7]),
+                                   int(argv[8]) if len(argv) > 8 else None)
         else:
             raise SystemExit(f"unknown scenario {scenario}")
         dist.barrier()

@@ -5,6 +5,8 @@ be the process's default group).
     python tests/_torch_fake_counts.py shapes OUT.json
     python tests/_torch_fake_counts.py toy OUT.json
     python tests/_torch_fake_counts.py smoke OUT.json
+    python tests/_torch_fake_counts.py vision OUT.json
+    python tests/_torch_fake_counts.py forward OUT.json
 
 * ``shapes`` — every cell of launch.specs.build_cell on the production
   meshes of 256 and 512 ranks (launch.mesh.fake_production_mesh): for
@@ -17,7 +19,8 @@ be the process's default group).
   its prefill step and of its train step, and its parameters' local
   shapes, for tests/test_torch_sharded_dryrun.py's count by hand.
 * ``smoke`` — the prefill step of the smoke configs of
-  tests/_sharded_inputs.py's ARCHS and of RECURRENT in float32, cut to
+  tests/_sharded_inputs.py's ARCHS, of RECURRENT and of VISION in
+  float32, cut to
   one layer of each kind as tests/_jax_sharded_step.py cuts them, at its
   batch on its (2, 4) mesh of 8 fake ranks: the collective bytes per
   device by kind, beside which PERF.md sets the reference's HLO count of
@@ -25,6 +28,14 @@ be the process's default group).
   FLOPs of the train, prefill and decode steps of the whole smoke config
   on meta tensors (each time loop one step batched over T) and on real
   CPU tensors (the loop over T), under "loop_counts".
+* ``vision`` — the same fold and loop counts of llama-3.2-vision-90b's
+  smoke config (one superblock) at VISION_TOKENS image tokens: on meta
+  tensors its cross attention runs as one chunk, on real ones in
+  `_divisor_chunk`'s chunks (one token each at the prime 1031).
+* ``forward`` — models.forward of every arch's smoke config in float32
+  on meta DTensors laid out on a (2, 4) mesh of 8 fake ranks, at
+  tests/_sharded_inputs.py's batch (with its `frames` or `images`): the
+  logits' shape, or the exception it raised.
 """
 import dataclasses
 import json
@@ -40,6 +51,8 @@ TOY = dict(name="toy", family="dense", n_layers=2, d_model=16, d_ff=32,
            vocab=32, n_heads=4, n_kv_heads=4, head_dim=4, dtype="float32")
 TOY_BATCH, TOY_SEQ = 4, 8
 RECURRENT = ("rwkv6-3b", "recurrentgemma-2b")
+VISION = "llama-3.2-vision-90b"
+VISION_TOKENS = (1031, 17)
 
 
 def _leaves(tree, specs, prefix=""):
@@ -115,6 +128,8 @@ def toy():
 
 def _cut(cfg):
     """tests/_jax_sharded_step.py's cut_config."""
+    if cfg.xattn_period:
+        return dataclasses.replace(cfg, n_layers=cfg.xattn_period + 1)
     if cfg.rglru:
         pattern = cfg.block_pattern or ("rglru", "rglru", "attn")
         return dataclasses.replace(cfg, n_layers=len(pattern) + 1)
@@ -125,7 +140,8 @@ def _step_counts(cfg, device):
     """StepCounter's (collective bytes by kind, FLOPs) of the train,
     prefill and decode steps of `cfg` at tests/_sharded_inputs.py's sizes
     on a (2, 4) mesh of the fake group: on meta DTensors, or on real ones
-    (zero tokens and cache, weights from a seeded generator) on the CPU."""
+    (zero tokens, images and cache, weights from a seeded generator) on
+    the CPU."""
     import _sharded_inputs as si
     from repro_torch.launch.dryrun import StepCounter
     from repro_torch.launch.mesh import Mesh
@@ -152,13 +168,23 @@ def _step_counts(cfg, device):
              else M.distribute_cache(M.init_cache(cfg, si.B, si.S_MAX,
                                                   device),
                                      cfg, mesh, si.B, si.S_MAX, rules))
+    def batch(labels):
+        out = {"tokens": tokens(si.B, si.S)}
+        if labels:
+            out["labels"] = tokens(si.B, si.S)
+        if cfg.xattn_period:
+            out["images"] = distribute(
+                torch.zeros((si.B, cfg.n_img_tokens, cfg.d_model),
+                            device=device), mesh, (("data",), None, None))
+        return out
+
     p = params()
     steps = {
         "train": lambda: M.make_train_step(cfg, mesh)(
             p, optim.abstract_adamw_state(p) if meta else optim.adamw_init(p),
-            {"tokens": tokens(si.B, si.S), "labels": tokens(si.B, si.S)}),
+            batch(True)),
         "prefill": lambda: M.make_prefill_step(cfg, mesh)(
-            params(), {"tokens": tokens(si.B, si.S)}),
+            params(), batch(False)),
         "decode": lambda: M.make_serve_step(cfg, mesh)(
             params(rules), cache, tokens(si.B), si.S_MAX - 1)}
     out = {}
@@ -183,15 +209,19 @@ def smoke():
     with fake_process_group(si.MESH[0] * si.MESH[1]):
         mesh = Mesh(si.MESH, ("data", "model"), torch.device("meta"),
                     device_type="cuda")
-        for arch in si.ARCHS + RECURRENT:
+        for arch in si.ARCHS + RECURRENT + (VISION,):
             cfg = _cut(dataclasses.replace(get_config(arch, smoke=True),
                                            dtype="float32"))
             params = M.abstract_params(cfg, mesh)
-            tokens = distribute(torch.empty(si.B, si.S, dtype=torch.int32,
-                                            device="meta"), mesh,
-                                (("data",), None))
+            batch = {"tokens": distribute(
+                torch.empty(si.B, si.S, dtype=torch.int32, device="meta"),
+                mesh, (("data",), None))}
+            if cfg.xattn_period:
+                batch["images"] = distribute(
+                    torch.empty(si.B, cfg.n_img_tokens, cfg.d_model,
+                                device="meta"), mesh, (("data",), None, None))
             with StepCounter() as c:
-                M.make_prefill_step(cfg, mesh)(params, {"tokens": tokens})
+                M.make_prefill_step(cfg, mesh)(params, batch)
             out[arch] = c.collective_bytes
         for arch in RECURRENT:
             cfg = dataclasses.replace(get_config(arch, smoke=True),
@@ -202,9 +232,53 @@ def smoke():
     return out
 
 
+def vision():
+    from repro_torch.compat import fake_process_group
+    from repro_torch.configs import get_config
+    import _sharded_inputs as si
+    out = {}
+    with fake_process_group(si.MESH[0] * si.MESH[1]):
+        for n in VISION_TOKENS:
+            cfg = dataclasses.replace(get_config(VISION, smoke=True),
+                                      dtype="float32", n_img_tokens=n)
+            out[str(n)] = {kind: _step_counts(cfg, torch.device(dev))
+                           for kind, dev in (("fold", "meta"),
+                                             ("loop", "cpu"))}
+    return out
+
+
+def forward():
+    import _sharded_inputs as si
+    from repro_torch.compat import fake_process_group
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    out = {}
+    with fake_process_group(si.MESH[0] * si.MESH[1]):
+        mesh = Mesh(si.MESH, ("data", "model"), torch.device("meta"),
+                    device_type="cuda")
+        for arch in list_archs():
+            cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                      dtype="float32")
+            batch = shard_batch(si.draw_batch(
+                cfg.vocab, cfg.d_model, cfg.enc_dec,
+                cfg.n_img_tokens if cfg.xattn_period else 0), mesh,
+                torch.float32)
+            try:
+                with torch.no_grad():
+                    logits = M.forward(M.abstract_params(cfg, mesh), cfg,
+                                       batch, mesh)[0]
+                out[arch] = [type(logits).__name__, list(logits.shape)]
+            except Exception as e:  # noqa: BLE001
+                out[arch] = [type(e).__name__, str(e)]
+    return out
+
+
 def main(argv):
     what, path = argv
-    res = {"shapes": shapes, "toy": toy, "smoke": smoke}[what]()
+    res = {"shapes": shapes, "toy": toy, "smoke": smoke,
+           "vision": vision, "forward": forward}[what]()
     with open(path, "w") as f:
         json.dump(res, f)
     print("FAKE_COUNTS_OK", len(res))

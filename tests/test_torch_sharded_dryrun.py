@@ -21,11 +21,10 @@ CPU.
     weight split over `data`.
 * Records: qwen3-8b decode_32k's roofline on 16x16 carries the
   collective term (collective_total over one 400 Gb/s port) and the
-  per-device compute term; the queued arch's (llama-3.2-vision-90b, the
-  cross-attention-period stack) dry-run record carries null per-device
-  fields with the reason, without its step being run, and so do both
-  spellings of its dry-run and roofline records (queued by its config,
-  not by its name).
+  per-device compute term; llama-3.2-vision-90b's (the
+  cross-attention-period stack) dry-run and roofline records carry the
+  partitioned count's per-device fields under both spellings of its
+  name.
 """
 import json
 import os
@@ -98,47 +97,29 @@ def test_roofline_collective_term():
     assert rec["bound_s"] == max(terms.values())
 
 
-def test_queued_arch_record_null_with_reason(monkeypatch):
-    def refuse(*a, **k):
-        raise AssertionError("a queued arch's step was run")
-    monkeypatch.setattr(dryrun, "count_partitioned", refuse)
-    monkeypatch.setattr(dryrun, "count_matmul_flops", refuse)
-    arch = "llama-3.2-vision-90b"
-    parts = dryrun.partitioned_counts([(arch, "train_4k")], False)
-    assert parts == {}
-    rec = dryrun.run_cell(arch, "train_4k", False, count=False,
-                          partition=parts)
-    assert rec["status"] == "ok" and rec["partitioner"] == "dtensor"
-    for k in dryrun.PARTITIONED:
-        assert rec[k] is None
-        assert rec["absent"][k] == dryrun.QUEUED_REASON
-
-
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
                                   "llama-3-2-vision-90b"])
-def test_queued_by_config_under_either_name(monkeypatch, arch):
-    """The cross-attention-period stack is queued whichever of its two
-    names a caller gives: both the dry run's and the roofline's records
-    are "ok" with null per-device fields and the reason, and neither
-    runs the partitioned step. The unsharded counts are stubbed: this
-    arch's full-depth step takes minutes on meta tensors."""
-    def refuse(*a, **k):
-        raise AssertionError("a queued arch's partitioned step was run")
-    monkeypatch.setattr(dryrun, "count_partitioned", refuse)
-    monkeypatch.setattr(dryrun, "PartitionedCount", refuse)
+def test_vision_record_has_per_device_fields(monkeypatch, arch):
+    """The cross-attention-period stack has a partitioned step: under
+    either of its two names, the dry run's and the roofline's records
+    carry the partitioned count's per-device fields (here a stub: the
+    16x16 count runs in a process of its own, and the full-depth
+    unsharded count is stubbed too), with nothing absent for them."""
+    part = {"flops_per_device": 4.0e14, "collective_total": 3.0e11,
+            "collective_bytes": {"all-gather": 1.0e11, "all-reduce": 2.0e11},
+            "collective_calls": {"all-gather": 3, "all-reduce": 5},
+            "partition_s": 1.0}
     monkeypatch.setattr(roofline, "count_matmul_flops",
-                        lambda cell: {"matmul_flops": 1.0e15})
-    assert dryrun.queued(arch)
-    parts = dryrun.partitioned_counts([(arch, "train_4k")], False)
-    assert parts == {}
+                        lambda cell: {"matmul_flops": 1.0e17})
     rec = dryrun.run_cell(arch, "train_4k", False, count=False,
-                          partition=parts)
+                          partition={(arch, "train_4k"): part})
     assert rec["status"] == "ok", rec.get("tb")
     for k in dryrun.PARTITIONED:
-        assert rec[k] is None
-        assert rec["absent"][k] == dryrun.QUEUED_REASON
-    rec = roofline.run_cell(arch, "train_4k")
+        assert rec[k] == part[k] and k not in rec["absent"]
+    rec = roofline.run_cell(arch, "train_4k", partition=part)
     assert rec["status"] == "ok", rec.get("tb")
-    assert rec["collective_s"] is None and rec["flops_per_device"] is None
-    assert rec["absent"]["collective_s"] == dryrun.QUEUED_REASON
-    assert not dryrun.queued("qwen3-8b")
+    assert not rec["absent"] and rec["recurrence_added_flops"] == 0
+    assert rec["flops_per_device"] == part["flops_per_device"]
+    assert rec["collective_s"] == part["collective_total"] / roofline.LINK_BW
+    assert rec["collective_bytes"] == part["collective_bytes"]
+    assert rec["dominant"] == "collective_s"

@@ -17,8 +17,9 @@ on the partitioned ring decode against the reference's
 `_ring_local_decode`; the time loops' count on meta tensors (one step
 batched over T) equal to the loop's on real tensors, partitioned
 (tests/_torch_fake_counts.py, 8 fake ranks) and unsharded; the RG-LRU
-scan outside the islands' FLOP count (roofline adds it once); and which
-stacks have a partitioned step.
+scan outside the islands' FLOP count (roofline adds it once); and a
+forward on DTensors of every one of the ten archs' smoke configs
+(tests/_torch_fake_counts.py ``forward``).
 """
 import json
 import os
@@ -32,6 +33,7 @@ torch = pytest.importorskip("torch")
 
 import _sharded_inputs as si  # noqa: E402
 import _sharded_parity as P  # noqa: E402
+from repro_torch.configs import list_archs  # noqa: E402
 
 ARCHS = ["rwkv6-3b", "recurrentgemma-2b"]
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -172,12 +174,25 @@ def test_rglru_scan_is_not_in_the_island_count():
         assert c.flops == 0 and y.shape == (2, 8, 16) and h.shape == (2, 16)
 
 
-def test_which_stacks_have_a_partitioned_step():
+@pytest.fixture(scope="module")
+def dtensor_forwards(tmp_path_factory):
+    out = tmp_path_factory.mktemp("fake_forward") / "forward.json"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable,
+                        os.path.join(ROOT, "tests", "_torch_fake_counts.py"),
+                        "forward", str(out)], env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and "FAKE_COUNTS_OK" in r.stdout, \
+        r.stderr[-3000:]
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_stack_has_a_partitioned_forward(dtensor_forwards, arch):
+    """Every one of the ten archs' smoke configs runs its forward on
+    DTensors ((2, 4) mesh of 8 fake ranks, meta tensors): none raises,
+    and the logits come back as a DTensor of (B, S, vocab)."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
-    from repro_torch.models import model as M
-    for arch in ARCHS:
-        assert M.has_partitioned_step(get_config(arch))
-        assert not dryrun.queued(arch)
-    assert not M.has_partitioned_step(get_config("llama-3.2-vision-90b"))
-    assert dryrun.queued("llama-3.2-vision-90b")
+    kind, shape = dtensor_forwards[arch]
+    assert kind == "DTensor", shape
+    assert shape == [si.B, si.S, get_config(arch, smoke=True).vocab]
