@@ -23,6 +23,14 @@ scale) and memoized through a pluggable cache hook (the serving backend
 plugs its `KeyCache` in); Galois/relin key generation reports its evk
 footprint through ``on_key_load``.
 
+Spans: with an `obs.EngineObs` set on ``obs`` the engine records one
+``engine.op`` span an op and, inside it, a span for each step (const,
+tensor, keyswitch, perm, combine, rescale, product, align, and keygen
+and ksk_mont on first use), on the context's host clock. Without one
+(the default) a step costs an attribute read and a None test at its
+start and end: no span is made and no clock is read. Spans never wait
+on the device.
+
 Scale handling: same-level operands of an add have structurally
 identical scales; across a level gap the deeper operand is brought down
 exactly with a compensating unit pmul. `bootstrap` ops execute as an
@@ -45,6 +53,7 @@ from repro_torch.core.encoder import CkksEncoder
 from repro_torch.core.encryptor import CkksEncryptor
 from repro_torch.core.params import CkksParams
 from repro_torch.core.trace import FheOp, FheTrace, evk_bytes
+from repro_torch.obs.tracer import EngineObs
 
 
 # ---------------------------------------------------------------------------
@@ -116,9 +125,10 @@ def _default_cache_factory() -> Callable:
     memo: Dict = {}
 
     def cache(key, nbytes, loader):
-        if key not in memo:
-            memo[key] = loader()
-        return memo[key]
+        value = memo.get(key)
+        if value is None:
+            value = memo[key] = loader()
+        return value
     return cache
 
 
@@ -155,6 +165,7 @@ class CkksEngine:
         # modmul kernel; all are bit-exact vs the library path
         self.use_kernels = use_kernels
         self._fks = None
+        self._obs: Optional[EngineObs] = None
         if on_key_load is not None:
             on_key_load(("relin",), evk_bytes(params))
 
@@ -164,14 +175,34 @@ class CkksEngine:
     def tolerance(self) -> float:
         return decrypt_tolerance(self.params)
 
+    # -- spans ---------------------------------------------------------------
+
+    @property
+    def obs(self) -> Optional[EngineObs]:
+        """The span context, None (spans off) by default."""
+        return self._obs
+
+    @obs.setter
+    def obs(self, obs: Optional[EngineObs]) -> None:
+        self._obs = obs
+        if self._fks is not None:
+            self._fks.obs = obs
+
     # -- keys ----------------------------------------------------------------
 
     def _gk(self, elt: int) -> KeySwitchKey:
-        if elt not in self._gks:
+        gk = self._gks.get(elt)
+        if gk is None:
+            o = self._obs
+            if o is not None:
+                o.begin("engine.keygen", key=("gk", elt))
             self._gks.update(self.encryptor.galois_keygen(self.sk, [elt]))
+            if o is not None:
+                o.end()
             if self.on_key_load is not None:
                 self.on_key_load(("gk", elt), evk_bytes(self.params))
-        return self._gks[elt]
+            gk = self._gks[elt]
+        return gk
 
     def _sync(self) -> None:
         """Wait for the device, so host wall times cover the work."""
@@ -206,25 +237,48 @@ class CkksEngine:
                          for i in range(m.shape[0])])
 
     def encode_const(self, vec: np.ndarray, scale: float, level: int,
-                     key: Optional[Tuple] = None) -> Plaintext:
-        """Encode (and memoize through the cache hook) one plaintext. The
-        key includes a digest of the VALUE, so a const name rebound to a
-        new value is never served stale. On the kernel route the entry
-        also holds K4's Montgomery operand, converted once here."""
+                     key: Optional[Tuple] = None) -> Tuple[_Const, bool]:
+        """Encode (and memoize through the cache hook) one plaintext, and
+        say whether the cache held it (its loader did not run). The key
+        includes a digest of the VALUE, so a const name rebound to a new
+        value is never served stale. On the kernel route the entry also
+        holds K4's Montgomery operand, converted once here."""
         # int64 residues, plus the int32 Montgomery operand for K4
         nbytes = (level + 1) * self.params.n * (12 if self.use_kernels
                                                 else 8)
         digest = hash(np.ascontiguousarray(vec).tobytes())
         k = ("pt",) + (key or ()) + (digest, level, float(scale))
+        loaded = False
 
         def load() -> _Const:
+            nonlocal loaded
+            loaded = True
             data = self.encoder.encode(vec, scale, level)
             mont = None
             if self.use_kernels:
                 from repro_torch.kernels import ops as kops
                 mont = kops.mont_operand(data, self.ctx.primes[:level + 1])
             return _Const(data, level, scale, mont)
-        return self.const_cache(k, nbytes, load)
+        return self.const_cache(k, nbytes, load), not loaded
+
+    def _const(self, scale: float, level: int, op: Optional[FheOp] = None,
+               consts: Optional[Dict[str, np.ndarray]] = None,
+               scope: Tuple = ()) -> _Const:
+        """`op`'s constant, its expression resolved to slots on the host,
+        or with no op the all-ones one of `_adjust_to`, encoded at (scale,
+        level) through the const cache."""
+        o = self._obs
+        if o is not None:
+            o.begin("engine.const", level=level)
+        if op is None:
+            vec, key = np.ones(self.params.slots), ("unit",)
+        else:
+            vec = const_vec(op, consts, self.params.slots)
+            key = scope + (_const_key(op),)
+        pt, hit = self.encode_const(vec, scale, level, key)
+        if o is not None:
+            o.end(hit=hit, hashed=vec.nbytes)
+        return pt
 
     # -- batched op appliers -------------------------------------------------
 
@@ -238,12 +292,16 @@ class CkksEngine:
         """Exact (level, scale) landing via a unit pmul at a compensating
         plaintext scale."""
         assert cb.level > level
+        o = self._obs
+        if o is not None:
+            o.begin("engine.align", level=level)
         cb = self._mod_switch(cb, level + 1)
         q_drop = self.ctx.primes[level + 1]
         pt_scale = scale * q_drop / cb.scale
-        pt = self.encode_const(np.ones(self.params.slots), pt_scale,
-                               level + 1, key=("unit",))
+        pt = self._const(pt_scale, level + 1)
         out = self._pmul(cb, pt, lazy=False)      # pt at cb's level
+        if o is not None:
+            o.end()
         return CtBatch(out.data, level, scale)   # exact by construction
 
     def _aligned(self, c0: CtBatch, c1: CtBatch) -> Tuple[CtBatch, CtBatch]:
@@ -285,7 +343,23 @@ class CkksEngine:
         if self._fks is None:
             from repro_torch.kernels.keyswitch import FusedKeySwitch
             self._fks = FusedKeySwitch(self.ctx)
+            self._fks.obs = self._obs
         return self._fks
+
+    def _keyswitch(self, x: torch.Tensor, level: int, key,
+                   ksk_data: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (B, level+1, N) switched to the evk `key` names ("relin" or
+        ("gk", elt)) on the fused kernels: (e0, e1)."""
+        o = self._obs
+        if o is not None:
+            o.begin("engine.keyswitch", key=key, level=level,
+                    batch=x.shape[0])
+        fks = self.fused_ks
+        e = fks.apply(x, level, fks.ksk_mont(key, level, ksk_data))
+        if o is not None:
+            o.end()
+        return e
 
     def _hmul_fused(self, c0: CtBatch, c1: CtBatch, lazy: bool) -> CtBatch:
         """HMul with the relinearization keyswitch on the fused kernels:
@@ -294,12 +368,20 @@ class CkksEngine:
         lvl = min(c0.level, c1.level)
         c0 = self._mod_switch(c0, lvl)
         c1 = self._mod_switch(c1, lvl)
+        o = self._obs
+        if o is not None:
+            o.begin("engine.tensor", level=lvl)
         t0, t1, d2 = hops.tensor(self.ctx, c0.data, c1.data, lvl)
-        km = self.fused_ks.ksk_mont("relin", lvl, self.rk.data)
-        e0, e1 = self.fused_ks.apply(d2, lvl, km)
+        if o is not None:
+            o.end()
+        e0, e1 = self._keyswitch(d2, lvl, "relin", self.rk.data)
+        if o is not None:
+            o.begin("engine.combine")
         q = self.ctx.q_all[: lvl + 1][:, None]
         data = torch.stack([ma.addmod(t0, e0, q), ma.addmod(t1, e1, q)],
                            dim=1)
+        if o is not None:
+            o.end()
         out = CtBatch(data, lvl, c0.scale * c1.scale)
         return out if lazy else self._rescale(out)
 
@@ -312,14 +394,22 @@ class CkksEngine:
         return CtBatch(out.data, out.level, out.scale)
 
     def _rescale(self, cb: CtBatch) -> CtBatch:
+        o = self._obs
+        if o is not None:
+            o.begin("engine.rescale", level=cb.level, batch=cb.batch)
         if self.use_kernels:
             # K1 + K3 (the keyswitch's ModDown tail by the last prime),
             # bit-identical to core/ops.rescale
-            return CtBatch(self.fused_ks.rescale(cb.data, cb.level),
-                           cb.level - 1,
-                           cb.scale / self.ctx.q_primes[cb.level])
-        out = hops.rescale(self.ctx, Ciphertext(cb.data, cb.level, cb.scale))
-        return CtBatch(out.data, out.level, out.scale)
+            out = CtBatch(self.fused_ks.rescale(cb.data, cb.level),
+                          cb.level - 1,
+                          cb.scale / self.ctx.q_primes[cb.level])
+        else:
+            ct = hops.rescale(self.ctx,
+                              Ciphertext(cb.data, cb.level, cb.scale))
+            out = CtBatch(ct.data, ct.level, ct.scale)
+        if o is not None:
+            o.end()
+        return out
 
     def _pmul_kernel(self, cb: CtBatch, pt: _Const) -> CtBatch:
         """Plaintext-multiply data product through the modmul kernel: the
@@ -327,9 +417,14 @@ class CkksEngine:
         the plaintext row of their limb, so ONE launch covers the batch.
         pt comes from `encode_const`, with its Montgomery operand."""
         from repro_torch.kernels import ops as kops
+        o = self._obs
+        if o is not None:
+            o.begin("engine.product")
         b, _, lp, n = cb.data.shape
         a = cb.data.reshape(2 * b * lp, n)
         data = kops.modmul_mont(a, *(t[:lp] for t in pt.mont))
+        if o is not None:
+            o.end()
         return CtBatch(data.reshape(b, 2, lp, n), cb.level,
                        cb.scale * pt.scale)
 
@@ -353,11 +448,19 @@ class CkksEngine:
         batch -> combine. Bit-identical to `_galois`."""
         gk = self._gk(elt)
         lvl = cb.level
+        o = self._obs
+        if o is not None:
+            o.begin("engine.perm")
         rot = cb.data[..., self.ctx.eval_perm(elt)]       # (B, 2, L, N)
-        km = self.fused_ks.ksk_mont(("gk", elt), lvl, gk.data)
-        e0, e1 = self.fused_ks.apply(rot[:, 1], lvl, km)
+        if o is not None:
+            o.end()
+        e0, e1 = self._keyswitch(rot[:, 1], lvl, ("gk", elt), gk.data)
+        if o is not None:
+            o.begin("engine.combine")
         q = self.ctx.q_all[: lvl + 1][:, None]
         data = torch.stack([ma.addmod(rot[:, 0], e0, q), e1], dim=1)
+        if o is not None:
+            o.end()
         return CtBatch(data, lvl, cb.scale)
 
     def _galois(self, cb: CtBatch, elt: int) -> CtBatch:
@@ -378,24 +481,25 @@ class CkksEngine:
         slots = self.params.slots
         scale = 2.0 ** self.params.log_scale
         produced: List[CtBatch] = []
+        o = self._obs
         for op in ops:
             if op.kind in ("input", "const"):
                 continue
             a = [env[x] for x in op.args]
+            if o is not None:
+                o.begin("engine.op", kind=op.kind, op=op.idx,
+                        level_in=min(x.level for x in a), batch=a[0].batch)
             lazy = bool(op.meta.get("lazy"))
             if op.kind in ("hadd", "hsub"):
                 out = self._addsub(op.kind, a[0], a[1])
             elif op.kind == "hmul":
                 out = self._hmul(a[0], a[1], lazy)
             elif op.kind == "pmul":
-                v = const_vec(op, consts, slots)
-                pt = self.encode_const(v, scale, a[0].level,
-                                       key=const_scope + (_const_key(op),))
+                pt = self._const(scale, a[0].level, op, consts, const_scope)
                 out = self._pmul(a[0], pt, lazy)
             elif op.kind == "padd":
-                v = const_vec(op, consts, slots)
-                pt = self.encode_const(v, a[0].scale, a[0].level,
-                                       key=const_scope + (_const_key(op),))
+                pt = self._const(a[0].scale, a[0].level, op, consts,
+                                 const_scope)
                 out = self._padd(a[0], pt)
             elif op.kind == "rotate":
                 step = op.meta["step"] % slots
@@ -413,6 +517,8 @@ class CkksEngine:
                 out = self.encrypt_batch(self.decode_batch(a[0]), target)
             else:
                 raise ValueError(op.kind)
+            if o is not None:
+                o.end(level_out=out.level)
             env[op.idx] = out
             produced.append(out)
         return produced

@@ -447,7 +447,9 @@ class FusedKeySwitch:
 
     Tables are built once per level; evaluation keys are put in
     Montgomery form once per (key identity, level) and kept as int32;
-    every evk (relin and all Galois keys) shares the same tables.
+    every evk (relin and all Galois keys) shares the same tables. With
+    ``obs`` (an `obs.EngineObs`, set by the engine that owns this) a
+    conversion records an ``engine.ksk_mont`` span.
     """
 
     DISPATCHES_PER_APPLY = 4      # kernel launches per keyswitch
@@ -455,6 +457,7 @@ class FusedKeySwitch:
 
     def __init__(self, ctx):
         self.ctx = ctx
+        self.obs = None
         self._tabs: Dict[int, _LevelTables] = {}
         self._rescale_tabs: Dict[int, _RescaleTables] = {}
         self._ksk_m: Dict[Tuple, torch.Tensor] = {}
@@ -591,12 +594,17 @@ class FusedKeySwitch:
         m = self._ksk_m.get(k)
         if m is not None:
             return m
+        o = self.obs
+        if o is not None:
+            o.begin("engine.ksk_mont", key=key, level=level)
         ctx = self.ctx
         t = self._tables(level)
         tix = ctx.index(list(range(level + 1)) + ctx.p_idx())
         rm = ctx._t([(1 << 32) % ctx.primes[g] for g in tix.tolist()])
         sel = ksk_data[: t.n_digits][:, :, tix]
         m = ma.mulmod(sel, rm[:, None], ctx.q_all[tix][:, None]).to(I32)
+        if o is not None:
+            o.end()
         self._ksk_m[k] = m
         return m
 

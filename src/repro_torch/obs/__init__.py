@@ -26,7 +26,7 @@ Copied from the reference's ``repro.obs`` with the imports rewritten;
 the exports write the same bytes as the reference's on a virtual clock.
 """
 from repro_torch.obs.span import Span, SpanStore
-from repro_torch.obs.tracer import ExecObs, Tracer
+from repro_torch.obs.tracer import EngineObs, ExecObs, Tracer
 from repro_torch.obs.log import EVENTS, JsonEventLog
 from repro_torch.obs.perfetto import (to_trace_events, validate,
                                       validate_file, write_trace)
@@ -39,7 +39,8 @@ from repro_torch.obs.openmetrics import parse as parse_openmetrics
 from repro_torch.obs.openmetrics import write_metrics
 
 __all__ = [
-    "Span", "SpanStore", "Tracer", "ExecObs", "JsonEventLog", "EVENTS",
+    "Span", "SpanStore", "Tracer", "ExecObs", "EngineObs",
+    "JsonEventLog", "EVENTS",
     "to_trace_events", "write_trace", "validate", "validate_file",
     "Segment", "critical_path", "request_chain", "workload_breakdown",
     "Telemetry", "Series", "HistogramSeries", "SloBurnRate",

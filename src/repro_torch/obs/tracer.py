@@ -22,12 +22,15 @@ its root span, and `close_root` stamps the terminal status
 `ExecObs` is the small context handed down into a backend's
 ``execute``/``round_seconds`` (tracer, parent span, timeline origin,
 device track) so per-round and per-stage spans parent correctly
-without the backend knowing about requests at all.
+without the backend knowing about requests at all. `EngineObs` is the
+one a `CkksEngine` holds for the spans of its ops, on a host clock the
+caller gives.
 """
 from __future__ import annotations
 
 import itertools
-from typing import Dict, NamedTuple, Optional
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 from repro_torch.obs.span import Span, SpanStore
 
@@ -128,3 +131,40 @@ class ExecObs(NamedTuple):
         return self._replace(t0=t0,
                              parent=self.parent if parent is None
                              else parent)
+
+
+class EngineObs:
+    """A `CkksEngine`'s span context: the tracer, the span its ops nest
+    under, their track and the clock (integer ns). Spans are stamped in
+    float seconds since ``anchor_ns``, the clock read once here, so that
+    spans of microseconds keep their precision: a span's clock time is
+    ``anchor_ns + start_s * 1e9``. The default clock, `time.time_ns`
+    (CLOCK_REALTIME), is the one torch.profiler stamps its host events
+    with, so the spans and the profiler's events share one timeline.
+
+    Spans nest by a stack: `begin` opens a span under the innermost open
+    one (or under ``parent``), `end` closes the innermost. A span never
+    waits on the device. An op that raises leaves its spans open, and
+    later spans under them: set a fresh context after one
+    (`Tracer.close_open` closes the open ones before export)."""
+
+    def __init__(self, tracer: Tracer, parent: Optional[int] = None,
+                 track: str = "engine",
+                 clock_ns: Callable[[], int] = time.time_ns):
+        self.tracer = tracer
+        self.parent = parent
+        self.track = track
+        self.clock_ns = clock_ns
+        self.anchor_ns = clock_ns()
+        self._open: List[int] = []
+
+    def now(self) -> float:
+        return (self.clock_ns() - self.anchor_ns) * 1e-9
+
+    def begin(self, name: str, **attrs) -> None:
+        parent = self._open[-1] if self._open else self.parent
+        self._open.append(self.tracer.begin(name, self.now(), parent,
+                                            self.track, **attrs))
+
+    def end(self, **attrs) -> None:
+        self.tracer.end(self._open.pop(), self.now(), **attrs)
