@@ -436,7 +436,8 @@ LAUNCHES = "# launches "
 COUNTED_RUN = f"""\
 import json, runpy, sys
 # every kernel module, so every counter is registered
-from repro_torch.kernels import bconv, keyswitch, modmul, ntt, common
+from repro_torch.kernels import (bconv, common, elementwise, keyswitch,
+                                 modmul, ntt)
 mod = sys.argv[1]
 sys.argv = [mod] + sys.argv[2:]
 try:
@@ -452,7 +453,7 @@ LM_PRETRAIN = ["--full"]     # its default 200 steps of batch 4 x seq 128
 # kernel's `launches` in the JSON line
 SERVE_KERNELS = ("intt_scale", "bconv_ntt_mulacc", "intt_scale(C1)",
                  "moddown", "intt_scale(rescale)", "moddown(rescale)",
-                 "modmul")
+                 "modmul", "tensor", "combine", "addsub")
 STAGED_KERNELS = ("modmul", "mulacc", "bconv")
 FIG14_KERNELS = ("modmul", "mulacc", "bconv", "bconv_lazy", "ntt_col",
                  "ntt_row")
@@ -2224,6 +2225,7 @@ def main() -> int:
                                          paper_params_bootstrap, test_params)
     from repro_torch.kernels import bconv as bc
     from repro_torch.kernels import build, common
+    from repro_torch.kernels import elementwise as kew
     from repro_torch.kernels import keyswitch as ks
     from repro_torch.kernels import modmul as mm
     from repro_torch.kernels import ntt as kntt
@@ -2401,10 +2403,39 @@ def main() -> int:
             _, e4 = compare(f"modmul@{level}",
                             lambda: mm.modmul_mont(*a4),
                             lambda: mm.modmul_mont_plain(*a4))
+            # the engine's elementwise passes (HMul tensor product and
+            # combine, HAdd), each against the library ops it replaces
+            bs = kew.basis(ctx.primes[:l], dev)
+            q_l = ctx.q_all[:l][:, None]
+            at = (ct, ctr, bs)
+            (t0, t1, _), e_t = compare(
+                f"tensor@{level}", lambda: kew.tensor(*at),
+                lambda: hops.tensor(ctx, ct, ctr, level))
+            ec = (rand_d2(level), rand_d2(level))
+            ac = (t0, t1, *ec, bs.q32)
+            _, e_c = compare(
+                f"combine@{level}", lambda: kew.combine(*ac),
+                lambda: torch.stack([ma.addmod(t0, ec[0], q_l),
+                                     ma.addmod(t1, ec[1], q_l)], dim=1))
+            # a rotation's: its b component read in place, e1 copied
+            ar = (ctr[:, 0], None, *ec, bs.q32)
+            compare(f"combine(rotate)@{level}", lambda: kew.combine(*ar),
+                    lambda: torch.stack([ma.addmod(ctr[:, 0], ec[0], q_l),
+                                         ec[1]], dim=1))
+            aa = (ct, ctr, bs.q32, False)
+            _, e_a = compare(f"addsub@{level}", lambda: kew.addsub(*aa),
+                             lambda: ma.addmod(ct, ctr, q_l))
+            # hsub of a limb slice (the engine's _mod_switch)
+            deep = torch.stack([rand_d2(level + 1), rand_d2(level + 1)], 1)
+            asub = (deep[:, :, :l], ct, bs.q32, True)
+            compare(f"addsub(sub, slice)@{level}",
+                    lambda: kew.addsub(*asub),
+                    lambda: ma.submod(deep[:, :, :l], ct, q_l))
             print(f"level {level}: K1-K4 torch.equal to their plain "
                   f"versions ({d_n} digits, tail of "
                   f"{l - (d_n - 1) * t.alpha}); the rescale's K1 and K3 "
-                  f"too, and the fused rescale to core/ops.rescale",
+                  f"too, and the fused rescale to core/ops.rescale; the "
+                  f"tensor, combine and addsub kernels to the library ops",
                   flush=True)
             if level != LEVEL:
                 continue
@@ -2458,8 +2489,33 @@ def main() -> int:
                      ct.reshape(2 * BATCH, l, n) * pt,
                      q64[:, None])),
             ]
+            # the elementwise passes: int64 words read and written once
+            # a (B, l, N) element (tensor 4 + 3, combine 4 + 2) or a (B,
+            # 2, l, N) one (addsub 2 + 1); 7 Montgomery products and an
+            # add a tensor element
+            el = BATCH * l * n
+            specs += [
+                ("tensor", e_t, lambda: kew.tensor(*at),
+                 lambda: kew.tensor_plain(*at), 56 * el,
+                 el * (7 * MONT + ADD),
+                 lambda: hops.tensor(ctx, ct, ctr, level)),
+                ("combine", e_c, lambda: kew.combine(*ac),
+                 lambda: kew.combine_plain(*ac), 48 * el, 2 * el * ADD,
+                 lambda: torch.stack([ma.addmod(t0, ec[0], q_l),
+                                      ma.addmod(t1, ec[1], q_l)], dim=1)),
+                ("addsub", e_a, lambda: kew.addsub(*aa),
+                 lambda: kew.addsub_plain(*aa), 48 * el, 2 * el * ADD,
+                 lambda: ma.addmod(ct, ctr, q_l)),
+            ]
             for spec in specs:
                 measure(*spec)
+            measure_shape("combine", "rotate", lambda: kew.combine(*ar),
+                          lambda: kew.combine_plain(*ar), 40 * el,
+                          el * ADD)
+            measure_shape("addsub", "sub, limb slice",
+                          lambda: kew.addsub(*asub),
+                          lambda: kew.addsub_plain(*asub), 48 * el,
+                          2 * el * ADD)
 
         # K5-K7 at this slice's full-width shapes: the staged keyswitch's
         # target basis at level 20 (T = 27 rows, the 32-bit prime in P)

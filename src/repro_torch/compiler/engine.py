@@ -14,9 +14,11 @@ or compile cache is needed.
 
 With ``use_kernels`` every keyswitch runs on the fused CUDA kernels
 (kernels/keyswitch.py, 4 launches), every rescale on the same kernels'
-ModDown tail (2 launches) and the plaintext-multiply data product on the
+ModDown tail (2 launches), the plaintext-multiply data product on the
 modmul kernel (kernels/modmul.py) with the batch folded into the
-limb-row axis; all are bit-exact against the library route.
+limb-row axis, and the HMul tensor product, the keyswitch combine and
+HAdd/HSub on one launch each (kernels/elementwise.py); all are
+bit-exact against the library route.
 
 Plaintext constants are encoded once per (const expression, level,
 scale) and memoized through a pluggable cache hook (the serving backend
@@ -53,6 +55,7 @@ from repro_torch.core.encoder import CkksEncoder
 from repro_torch.core.encryptor import CkksEncryptor
 from repro_torch.core.params import CkksParams
 from repro_torch.core.trace import FheOp, FheTrace, evk_bytes
+from repro_torch.kernels import elementwise as kew
 from repro_torch.obs.tracer import EngineObs
 
 
@@ -330,6 +333,10 @@ class CkksEngine:
 
     def _addsub(self, kind: str, c0: CtBatch, c1: CtBatch) -> CtBatch:
         c0, c1 = self._aligned(c0, c1)
+        if self.use_kernels:
+            data = kew.addsub(c0.data, c1.data, self._kbasis(c0.level).q32,
+                              sub=kind == "hsub")
+            return CtBatch(data, c0.level, c0.scale)
         fn = hops.hadd if kind == "hadd" else hops.hsub
         out = fn(self.ctx, Ciphertext(c0.data, c0.level, c0.scale),
                  Ciphertext(c1.data, c0.level, c0.scale))
@@ -345,6 +352,10 @@ class CkksEngine:
             self._fks = FusedKeySwitch(self.ctx)
             self._fks.obs = self._obs
         return self._fks
+
+    def _kbasis(self, level: int):
+        """The elementwise kernels' constants of the limbs at `level`."""
+        return kew.basis(self.ctx.primes[: level + 1], self.device)
 
     def _keyswitch(self, x: torch.Tensor, level: int, key,
                    ksk_data: torch.Tensor
@@ -363,23 +374,23 @@ class CkksEngine:
 
     def _hmul_fused(self, c0: CtBatch, c1: CtBatch, lazy: bool) -> CtBatch:
         """HMul with the relinearization keyswitch on the fused kernels:
-        tensor product -> 4-launch keyswitch of the whole d2 batch ->
-        combine (+ rescale). Bit-identical to `_hmul`."""
+        tensor product (1 launch) -> 4-launch keyswitch of the whole d2
+        batch -> combine (1 launch) (+ rescale). Bit-identical to
+        `_hmul`."""
         lvl = min(c0.level, c1.level)
         c0 = self._mod_switch(c0, lvl)
         c1 = self._mod_switch(c1, lvl)
+        bs = self._kbasis(lvl)
         o = self._obs
         if o is not None:
             o.begin("engine.tensor", level=lvl)
-        t0, t1, d2 = hops.tensor(self.ctx, c0.data, c1.data, lvl)
+        t0, t1, d2 = kew.tensor(c0.data, c1.data, bs)
         if o is not None:
             o.end()
         e0, e1 = self._keyswitch(d2, lvl, "relin", self.rk.data)
         if o is not None:
             o.begin("engine.combine")
-        q = self.ctx.q_all[: lvl + 1][:, None]
-        data = torch.stack([ma.addmod(t0, e0, q), ma.addmod(t1, e1, q)],
-                           dim=1)
+        data = kew.combine(t0, t1, e0, e1, bs.q32)
         if o is not None:
             o.end()
         out = CtBatch(data, lvl, c0.scale * c1.scale)
@@ -445,7 +456,7 @@ class CkksEngine:
     def _galois_fused(self, cb: CtBatch, elt: int) -> CtBatch:
         """Galois automorphism with the keyswitch on the fused kernels:
         NTT-domain permutation -> 4-launch keyswitch of the rotated `a`
-        batch -> combine. Bit-identical to `_galois`."""
+        batch -> combine (1 launch). Bit-identical to `_galois`."""
         gk = self._gk(elt)
         lvl = cb.level
         o = self._obs
@@ -457,8 +468,7 @@ class CkksEngine:
         e0, e1 = self._keyswitch(rot[:, 1], lvl, ("gk", elt), gk.data)
         if o is not None:
             o.begin("engine.combine")
-        q = self.ctx.q_all[: lvl + 1][:, None]
-        data = torch.stack([ma.addmod(rot[:, 0], e0, q), e1], dim=1)
+        data = kew.combine(rot[:, 0], None, e0, e1, self._kbasis(lvl).q32)
         if o is not None:
             o.end()
         return CtBatch(data, lvl, cb.scale)

@@ -9,6 +9,8 @@ version: one for every Pallas kernel of `repro/kernels/`.
 * ``bconv``     — K6 ``bconv_mont``, eager and lazy (``ops.bconv``);
 * ``ntt``       — K7 ``ntt_col`` + ``ntt_row``, the four-step NTT
   (``ops.NttKernel``);
+* ``elementwise`` — the engine's tensor product, keyswitch combine and
+  HAdd/HSub, one launch each (the reference's XLA fusions);
 * ``ref``       — exact oracles of K4-K7;
 * ``build``     — nvcc + ctypes loader for ``repro_torch/csrc``.
 

@@ -22,7 +22,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("keyswitch.cu", "modmul.cu", "bconv.cu", "ntt.cu")
+SOURCES = ("keyswitch.cu", "modmul.cu", "bconv.cu", "ntt.cu",
+           "elementwise.cu")
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"   # when nvcc is not on PATH
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.params import test_params as t_test_params  # noqa: E402
 from repro_torch.kernels import bconv as bc  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import elementwise as kew  # noqa: E402
 from repro_torch.kernels import keyswitch as ks  # noqa: E402
 from repro_torch.kernels import modmul as mm  # noqa: E402
 from repro_torch.kernels import ntt as kntt  # noqa: E402
@@ -324,12 +325,21 @@ def _kernel_calls(device, n=64):
                                             lazy=True),
         "ntt_col": lambda: kntt.ntt_col(z(16, dtype=torch.int64), kt, 2),
         "ntt_row": lambda: kntt.ntt_row(z(4, 4), kt, 2),
+        "tensor": lambda: kew.tensor(z(b, 2, l, n, dtype=torch.int64),
+                                     z(b, 2, l, n, dtype=torch.int64),
+                                     kew.Basis(z(l), z(l), z(l))),
+        "combine": lambda: kew.combine(
+            *[z(b, l, n, dtype=torch.int64)] * 4, z(l)),
+        "addsub": lambda: kew.addsub(z(b, 2, l, n, dtype=torch.int64),
+                                     z(b, 2, l, n, dtype=torch.int64), z(l),
+                                     sub=True),
     }
 
 
 @pytest.mark.parametrize("name", ["intt_scale", "bconv_ntt_mulacc",
                                   "moddown", "modmul", "mulacc", "bconv",
-                                  "bconv_lazy", "ntt_col", "ntt_row"])
+                                  "bconv_lazy", "ntt_col", "ntt_row",
+                                  "tensor", "combine", "addsub"])
 def test_wrapper_refuses_device_without_route(name):
     """A device that is neither the CPU (plain version) nor CUDA (the
     kernel) is refused before any library is loaded or launch made."""
