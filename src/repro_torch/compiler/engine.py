@@ -487,10 +487,12 @@ class CkksEngine:
                 consts: Dict[str, np.ndarray], *, start_level: int,
                 const_scope: Tuple = ()) -> List[CtBatch]:
         """Evaluate `ops` (any program-ordered slice of a trace) against
-        `env`, mutating it in place. Returns the values produced."""
+        `env`, mutating it in place: each op's value is added, and the
+        values it is the last reader of (`FheOp.frees`, set on a compiled
+        schedule's ops) are dropped once it has run. Returns the values
+        produced that `env` still holds."""
         slots = self.params.slots
         scale = 2.0 ** self.params.log_scale
-        produced: List[CtBatch] = []
         o = self._obs
         for op in ops:
             if op.kind in ("input", "const"):
@@ -530,8 +532,10 @@ class CkksEngine:
             if o is not None:
                 o.end(level_out=out.level)
             env[op.idx] = out
-            produced.append(out)
-        return produced
+            for x in op.frees:
+                env.pop(x, None)
+        return [env[op.idx] for op in ops if op.idx in env
+                and op.kind not in ("input", "const")]
 
     # -- whole-trace / whole-schedule execution ------------------------------
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.params import CkksParams
 from repro_torch.core.pipeline import MemoryModel
@@ -109,6 +109,9 @@ class PassStats:
                                       # itself (run + cost re-check)
     verify_wall_s: float = 0.0        # repro_torch.analysis per-pass sweep
     verify_findings: int = 0          # findings (any severity) it raised
+    records: List[Dict] = dataclasses.field(default_factory=list)
+    #                                   the choices an applied pass
+    #                                   reported (its `run_recorded`)
 
     @property
     def delta_ops(self) -> int:
@@ -221,7 +224,9 @@ def optimize_trace(trace: FheTrace, params: CkksParams,
     for p in (config.enabled() if passes is None else passes):
         before_ops = len(work.ops)
         t0 = time.perf_counter()
-        new = p.run(work, params, config)
+        run_recorded = getattr(p, "run_recorded", None)
+        new, records = (run_recorded(work, params, config) if run_recorded
+                        else (p.run(work, params, config), []))
         sec_new = _try_seconds(new, params, start, config.bootstrap_to)
         wall = time.perf_counter() - t0
         applied, reverted = True, False
@@ -234,7 +239,8 @@ def optimize_trace(trace: FheTrace, params: CkksParams,
             assert sec_new <= sec * (1 + 1e-9), \
                 f"pass {p.name} increased analytic cost {sec} -> {sec_new}"
         st = PassStats(p.name, before_ops, len(new.ops),
-                       sec, sec_new, applied, reverted, wall_s=wall)
+                       sec, sec_new, applied, reverted, wall_s=wall,
+                       records=records if applied else [])
         if verify and applied:
             rep = verify_pass(work, new, check_budget=False,
                               start_level=start,

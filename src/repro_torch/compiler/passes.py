@@ -117,6 +117,13 @@ class RotationOpt(Pass):
     name = "rotation"
 
     def run(self, trace, params, config):
+        return self.run_recorded(trace, params, config)[0]
+
+    def run_recorded(self, trace, params, config):
+        """`run`'s trace and a record (a dict) a factored tree: its
+        terms, the split g, the baby and giant rotations, and the
+        rotations before and after. A pass with choices to report has
+        this method; `optimize_trace` files them in `PassStats.records`."""
         t = self._compose(trace, params)
         return self._bsgs(t, params, config)
 
@@ -154,7 +161,7 @@ class RotationOpt(Pass):
             if plan is not None:
                 plans[root] = plan
         if not plans:
-            return trace
+            return trace, []
         em = Emitter(len(ops))
         out: List[FheOp] = clone_ops(trace)
         new_list: List[FheOp] = []
@@ -164,7 +171,8 @@ class RotationOpt(Pass):
             if op.idx in plans:
                 self._emit(new_list, em, subst, op.idx, plans[op.idx],
                            trace)
-        return finish(new_list, trace.inputs, trace.outputs, subst)
+        return (finish(new_list, trace.inputs, trace.outputs, subst),
+                [plans[r][-1] for r in sorted(plans)])
 
     def _plan(self, trace, uses, root, slots, config):
         """A tree qualifies when >= bsgs_min_terms single-use
@@ -196,17 +204,42 @@ class RotationOpt(Pass):
                 others.append(t)
         if len(chosen) < config.bsgs_min_terms:
             return None
-        g = max(1, int(round(math.sqrt(len(chosen)))))
-        babies = {s % g for s, _ in chosen}
-        giants = {s - s % g for s, _ in chosen}
-        n_old = sum(1 for s, _ in chosen if s != 0)
-        n_new = len(babies - {0}) + len(giants - {0})
-        if n_new >= n_old:
+        steps = [s for s, _ in chosen]
+        g = self._split(steps, slots)
+        babies = len({s % g for s in steps} - {0})
+        giants = len({s - s % g for s in steps} - {0})
+        n_old = sum(1 for s in steps if s != 0)
+        if babies + giants >= n_old:
             return None
-        return base, g, chosen, others
+        record = {"terms": len(chosen), "g": g,
+                  "babies": babies, "giants": giants,
+                  "rotations_before": n_old,
+                  "rotations_after": babies + giants}
+        return base, g, chosen, others, record
+
+    @staticmethod
+    def _split(steps, slots):
+        """The baby-step width g that needs the fewest rotations, of
+        round(sqrt(n)) and the powers of two up to `slots`; round(sqrt(n))
+        on a tie, else the smallest. Contiguous steps (a matvec's 0..n-1)
+        plan best at round(sqrt(n)); a convolution's steps, 1024 d + 32 dy
+        + dx, cluster around multiples of the channel stride and plan best
+        at g = that stride (8 babies, 16 giants for 144 terms)."""
+        def rotations(g):
+            return (len({s % g for s in steps} - {0})
+                    + len({s - s % g for s in steps} - {0}))
+        best = max(1, int(round(math.sqrt(len(steps)))))
+        least = rotations(best)
+        g = 1
+        while g <= slots:
+            n = rotations(g)
+            if n < least:
+                best, least = g, n
+            g *= 2
+        return best
 
     def _emit(self, out, em, subst, root, plan, trace):
-        base, g, chosen, others = plan
+        base, g, chosen, others, _ = plan
 
         def push(kind, args, **meta):
             o = em.op(kind, tuple(args), **meta)

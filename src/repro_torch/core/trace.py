@@ -13,7 +13,8 @@ parameter set — the same accounting the paper uses to size pipeline stages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, ClassVar, Dict, List, Optional, Sequence,
+                    Tuple)
 
 from repro_torch.core.params import CkksParams
 
@@ -41,6 +42,11 @@ class FheOp:
     args: Tuple[int, ...] = ()
     meta: dict = dataclasses.field(default_factory=dict)
     level: Optional[int] = None   # filled by level inference
+    # args that no later op of its schedule and no output reads: an
+    # executor may drop their values once this op has run. Not a field
+    # (no part of the op's identity); set on a compiled schedule's ops
+    # by runtime.compile_cache.mark_last_uses, empty otherwise
+    frees: ClassVar[Tuple[int, ...]] = ()
 
 
 @dataclasses.dataclass

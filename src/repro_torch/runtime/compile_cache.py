@@ -36,6 +36,26 @@ def trace_fingerprint(trace: FheTrace) -> str:
     return h.hexdigest()
 
 
+def mark_last_uses(sched: PipelineSchedule) -> None:
+    """Set `FheOp.frees` on the schedule's ops, in the order its stages
+    run them: on each op, the args it is the last reader of, outputs
+    excepted. An executor that drops those values holds only the live
+    ones: a deep program's thousands of intermediate ciphertexts never
+    reside at once."""
+    order = [op for st in sched.stages for op in st.ops]
+    last: Dict[int, int] = {}
+    for op in order:
+        for a in op.args:
+            last[a] = op.idx
+    keep = set(sched.trace.outputs) if sched.trace is not None else set()
+    frees: Dict[int, list] = {}
+    for a, at in last.items():
+        if a not in keep:
+            frees.setdefault(at, []).append(a)
+    for op in order:
+        op.frees = tuple(sorted(frees.get(op.idx, ())))
+
+
 def _params_key(params: CkksParams) -> Tuple:
     return (params.log_n, params.log_scale, params.n_levels, params.dnum,
             params.first_mod_bits, params.scale_mod_bits,
@@ -135,6 +155,7 @@ class CompileCache:
                 self.metrics.incr("traces_optimized")
             sched = mapper(trace, params, mem, **mapper_kwargs)
             sched.pass_report = report
+            mark_last_uses(sched)
             if self.verify:
                 self._verify_miss(sched, trace, params, pass_config,
                                   report)
